@@ -7,10 +7,12 @@ input arrays.  The layout mirrors the JAX package (``ops/``, ``fast/``,
 
 Ported so far: the int32 CKKS multiply-relinearize-rescale path
 (``fast/fckks.py:mul_relin_rescale``) and hoisted rotations, over
-``fast/frns.py`` and ``fast/fring.py``.  Its one kernel, the negacyclic NTT,
-is a hand-written CUDA kernel (``csrc/ntt.cu``) that CUDA tensors go
-through; CPU tensors take a plain torch version of the same function
-(``ops/ntt_plain.py``).
+``fast/frns.py`` and ``fast/fring.py``, and the NTT in all its forms: one
+transform or a chain of k (``ops/ntt_cuda.py``), and the w22-prime
+transform (``ops/ntt_w22.py``).  They run one hand-written CUDA source
+(``csrc/ntt.cu``) that CUDA tensors go through; CPU tensors take a plain
+torch version of the same function (``ops/ntt_plain.py``).  Constructors
+put their tensors on the card unless given another device.
 
 This package imports torch and numpy, never jax.
 """

@@ -27,6 +27,7 @@ import torch
 from matrix_fhe_tpu_torch.fast import fring, frns
 from matrix_fhe_tpu_torch.fast.fring import FastRing
 from matrix_fhe_tpu_torch.ops.automorphism import automorphism_ntt_index
+from matrix_fhe_tpu_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,12 +107,14 @@ def _new_context(n, Q, P, rlk_q, rlk_p, gk_q, gk_p, gal_els, rescale_limbs,
 
 
 def context_from_arrays(n: int, Q, P, rlk_q, rlk_p, gk_q=None, gk_p=None,
-                        gal_els=(), rescale_limbs: int = 2, *, device
+                        gal_els=(), rescale_limbs: int = 2, *, device="cuda"
                         ) -> FastCKKSContext:
     """Context from the plain-domain int32 key stacks of a JAX
     ``FastCKKSContext`` (its fields after ``np.asarray``), or of any source
     that produces the same layout: rlk [digits, 2, L, N] per basis, gk
-    [G, digits, 2, L, N] in ``gal_els`` order."""
+    [G, digits, 2, L, N] in ``gal_els`` order.  On the card unless ``device``
+    says otherwise."""
+    device = resolve_device(device)
     Q, P = [int(q) for q in Q], [int(p) for p in P]
     D = -(-len(Q) // len(P))
 
@@ -133,12 +136,14 @@ def context_from_arrays(n: int, Q, P, rlk_q, rlk_p, gk_q=None, gk_p=None,
 
 def make_synthetic_context(logn: int, num_q: int, num_p: int,
                            rescale_limbs: int = 2, seed: int = 0,
-                           num_rot: int = 0, *, device):
-    """Context + four uniform-random NTT-domain operands (c0, c1, d0, d1).
+                           num_rot: int = 0, *, device="cuda"):
+    """Context + four uniform-random NTT-domain operands (c0, c1, d0, d1),
+    on the card unless ``device`` says otherwise.
 
     Draws from ``np.random.default_rng(seed)`` in the JAX function's order
     and shapes (galois keys, then rlk, then the operands), so one seed gives
     both packages the same keys and operands, bit for bit."""
+    device = resolve_device(device)
     n = 1 << logn
     moduli = fring.find_fast_primes(n, num_q + num_p)
     Q, P = moduli[:num_q], moduli[num_q:]

@@ -9,7 +9,8 @@ path.
 
 ``ntt``/``intt`` dispatch on the tensor's device (``ops/ntt_cuda.py``): a
 CUDA tensor goes through the hand-written kernel, a CPU tensor through the
-plain torch version.
+plain torch version.  ``new_fast_ring`` puts a ring on the card unless asked
+for another device.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import dataclasses
 import torch
 
 from matrix_fhe_tpu_torch.ops import ntt_cuda
+from matrix_fhe_tpu_torch.utils.device import resolve_device
 
 MAX_FAST_MODULUS = ntt_cuda.MAX_V2_MODULUS  # 2^23
 
@@ -161,9 +163,10 @@ def find_fast_primes(n: int, count: int) -> list[int]:
     return ntt_cuda.find_v2_primes(n, count)
 
 
-def new_fast_ring(n: int, moduli: list[int], device) -> FastRing:
+def new_fast_ring(n: int, moduli: list[int], device="cuda") -> FastRing:
     """Standard (power-of-two negacyclic) fast ring over <2^23 primes,
     with its tables on ``device``."""
+    device = resolve_device(device)
     if n < 16 or n & (n - 1):
         raise ValueError("N must be a power of two >= 16")
     for q in moduli:

@@ -7,7 +7,8 @@ int64 (below 2^52 for <= 40 limbs); the float64 ``v``-correction of the
 approximate base extension keeps the reference's order of accumulation and
 divides by each q_i (basis_extension.go:550-594).
 
-All polynomials are int32 [..., L, N], canonical in [0, q).
+All polynomials are int32 [..., L, N], canonical in [0, q).  The ``gen_*``
+constructors put their constants on the card unless asked for another device.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 
 from matrix_fhe_tpu_torch.fast.fring import FastRing, mulmod
+from matrix_fhe_tpu_torch.utils.device import resolve_device
 
 
 def _i32(values, device) -> torch.Tensor:
@@ -79,8 +81,9 @@ class FastModUpConstants:
     src_q_f64: torch.Tensor       # f64 [LQ]       qi, the divisors of v
 
 
-def gen_fast_modup_constants(Q: list[int], P: list[int], device
+def gen_fast_modup_constants(Q: list[int], P: list[int], device="cuda"
                              ) -> FastModUpConstants:
+    device = resolve_device(device)
     big_q = 1
     for q in Q:
         big_q *= q
@@ -136,8 +139,9 @@ class FastModDownConstants:
     pinv_mod_q: torch.Tensor  # int32 [LQ]  P^-1 mod qi
 
 
-def gen_fast_moddown_constants(Q: list[int], P: list[int], device
+def gen_fast_moddown_constants(Q: list[int], P: list[int], device="cuda"
                                ) -> FastModDownConstants:
+    device = resolve_device(device)
     const = []
     for qi in Q:
         acc = 1
@@ -177,7 +181,9 @@ class FastDecomposer:
     lp: int
 
 
-def gen_fast_decomposer(Q: list[int], P: list[int], device) -> FastDecomposer:
+def gen_fast_decomposer(Q: list[int], P: list[int], device="cuda"
+                        ) -> FastDecomposer:
+    device = resolve_device(device)
     alpha = len(P)
     nd = -(-len(Q) // alpha)
     mucs = []

@@ -1,9 +1,11 @@
-"""The negacyclic NTT on the card: tables, build and wrapper of ``csrc/ntt.cu``.
+"""The negacyclic NTT on the card: tables, build and wrappers of ``csrc/ntt.cu``.
 
-Counterpart of ``matrix_fhe_tpu/ops/pallas_ntt2.py`` (``find_v2_primes``,
-``build_tables``, ``ntt_fwd``/``ntt_bwd``).  ``ntt_fwd``/``ntt_bwd`` take
-int32 [..., L, N] residues canonical in [0, q) and return the transform in
-the reference's bit-reversed order, canonical:
+Counterpart of ``matrix_fhe_tpu/ops/pallas_ntt2.py``: ``find_v2_primes``,
+``build_tables``, ``ntt_fwd``/``ntt_bwd`` (its ``_transform``) and
+``ntt_chain`` (its ``ntt_chain``, the transform applied k times in one
+launch, bit-exact to k sequential calls).  They take int32 [..., L, N]
+residues canonical in [0, q) and return the transform in the reference's
+bit-reversed order, canonical:
 
   * a CUDA tensor goes through the hand-written kernel; if the kernel cannot
     be built or launched, the call raises;
@@ -12,7 +14,8 @@ the reference's bit-reversed order, canonical:
 The kernel is compiled by ``nvcc`` for sm_90a into a plain C library at
 first use (``library()``), into ``matrix_fhe_tpu_torch/_build/`` under a name
 keyed by a hash of the source and flags, and bound with ctypes.  Nothing is
-built or loaded when this module is imported.
+built or loaded when this module is imported.  Table constructors put their
+tables on the card unless asked for another device.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import torch
 
 from matrix_fhe_tpu_torch.ops import ntt_plain, tables
 from matrix_fhe_tpu_torch.utils import primes as pr
+from matrix_fhe_tpu_torch.utils.device import resolve_device
 
 MAX_V2_MODULUS = 1 << 23
 # The kernel holds one row of N uint32 in shared memory (<= 128 KB).
@@ -44,9 +48,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # Kernel launches since the counts were last reset: by ntt_fwd, by ntt_bwd,
-# and by both together.
+# by ntt_chain in each direction, and by all four together.
 fwd_launches = 0
 bwd_launches = 0
+chain_fwd_launches = 0
+chain_bwd_launches = 0
 launches = 0
 
 
@@ -107,8 +113,6 @@ class NTTTables:
 
 
 def _limb_tables(n: int, q: int) -> dict[str, np.ndarray]:
-    if q >= MAX_V2_MODULUS:
-        raise ValueError(f"modulus {q} too large for the fast path")
     psi = tables.root_2n(n, q)
     fwd, bwd = tables.psi_tables(n, q, psi)
     ninv = np.array(pow(n, q - 2, q), dtype=np.int64)
@@ -130,9 +134,19 @@ def _limb_tables(n: int, q: int) -> dict[str, np.ndarray]:
     }
 
 
-def build_tables(n: int, moduli: list[int], device) -> NTTTables:
+def build_tables(n: int, moduli: list[int], device="cuda") -> NTTTables:
+    return stacked_tables(NTTTables, n, moduli, MAX_V2_MODULUS, device)
+
+
+def stacked_tables(cls, n: int, moduli: list[int], max_modulus: int, device):
+    """Tables of class ``cls`` (``NTTTables`` or a subclass) for moduli
+    below ``max_modulus``, stacked over the limbs, on ``device``."""
+    device = resolve_device(device)
     if n < 16 or n & (n - 1):
         raise ValueError("N must be a power of two >= 16")
+    for q in moduli:
+        if q >= max_modulus:
+            raise ValueError(f"modulus {q} too large: this NTT takes q < {max_modulus}")
     logn = n.bit_length() - 1
     R, C = 1 << (logn // 2), 1 << (logn - logn // 2)
     if C > ntt_plain.MAX_PLAIN_SPLIT:
@@ -140,7 +154,7 @@ def build_tables(n: int, moduli: list[int], device) -> NTTTables:
     per_limb = [_limb_tables(n, q) for q in moduli]
     stacked = {name: torch.from_numpy(np.stack([t[name] for t in per_limb])).to(device)
                for name in per_limb[0]}
-    return NTTTables(n=n, rows=R, cols=C, **stacked)
+    return cls(n=n, rows=R, cols=C, **stacked)
 
 
 # ---------------------------------------------------------------------------
@@ -182,10 +196,9 @@ def library() -> ctypes.CDLL:
             os.replace(out, so)
     lib = ctypes.CDLL(str(so))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.mfhe_ntt_fwd.argtypes = [p, p, p, p, p, i, i, i, p]
-    lib.mfhe_ntt_fwd.restype = i
-    lib.mfhe_ntt_bwd.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
-    lib.mfhe_ntt_bwd.restype = i
+    lib.mfhe_ntt_chain_fwd.argtypes = [p, p, p, p, p, i, i, i, i, p]
+    lib.mfhe_ntt_chain_bwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
+    lib.mfhe_ntt_chain_fwd.restype = lib.mfhe_ntt_chain_bwd.restype = i
     return lib
 
 
@@ -194,29 +207,63 @@ def library() -> ctypes.CDLL:
 # ---------------------------------------------------------------------------
 
 def ntt_fwd(x: torch.Tensor, tabs: NTTTables) -> torch.Tensor:
-    return _transform(x, tabs, fwd=True)
+    global fwd_launches
+    check_input(x, tabs)
+    if x.device.type == "cpu":
+        return ntt_plain.ntt_fwd_plain(x, tabs)
+    out = launch(x, tabs, fwd=True)
+    fwd_launches += 1
+    return out
 
 
 def ntt_bwd(x: torch.Tensor, tabs: NTTTables) -> torch.Tensor:
-    return _transform(x, tabs, fwd=False)
-
-
-def _transform(x: torch.Tensor, tabs: NTTTables, fwd: bool) -> torch.Tensor:
+    global bwd_launches
+    check_input(x, tabs)
     if x.device.type == "cpu":
-        fn = ntt_plain.ntt_fwd_plain if fwd else ntt_plain.ntt_bwd_plain
-        return fn(x, tabs)
-    if x.device.type != "cuda":
-        raise ValueError(f"no NTT for device {x.device}")
-    return _launch(x, tabs, fwd)
+        return ntt_plain.ntt_bwd_plain(x, tabs)
+    out = launch(x, tabs, fwd=False)
+    bwd_launches += 1
+    return out
 
 
-def _launch(x: torch.Tensor, tabs: NTTTables, fwd: bool) -> torch.Tensor:
-    global fwd_launches, bwd_launches, launches
+def ntt_chain(x: torch.Tensor, tabs: NTTTables, k: int,
+              fwd: bool = True) -> torch.Tensor:
+    """The forward (``fwd``) or inverse transform applied ``k`` >= 1 times,
+    on the card in one launch: each row is loaded once, transformed k times
+    in shared memory and stored once.  Equal to k sequential
+    ``ntt_fwd``/``ntt_bwd`` calls."""
+    global chain_fwd_launches, chain_bwd_launches
+    if not isinstance(k, int) or k < 1:
+        raise ValueError(f"k must be an int >= 1, got {k!r}")
+    check_input(x, tabs)
+    if x.device.type == "cpu":
+        return ntt_plain.ntt_chain_plain(x, tabs, k, fwd)
+    out = launch(x, tabs, fwd, k)
+    if fwd:
+        chain_fwd_launches += 1
+    else:
+        chain_bwd_launches += 1
+    return out
+
+
+def check_input(x: torch.Tensor, tabs: NTTTables) -> None:
+    """Raise unless ``x`` is int32 [..., L, N] for these tables, on the CPU
+    or on a CUDA device."""
     n, L = tabs.n, tabs.num_limbs
     if x.dtype != torch.int32:
-        raise TypeError(f"NTT kernel takes int32, got {x.dtype}")
+        raise TypeError(f"the NTT takes int32, got {x.dtype}")
     if x.dim() < 2 or x.shape[-1] != n or x.shape[-2] != L:
         raise ValueError(f"shape {tuple(x.shape)} is not [..., {L}, {n}]")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no NTT for device {x.device}")
+
+
+def launch(x: torch.Tensor, tabs: NTTTables, fwd: bool, k: int = 1) -> torch.Tensor:
+    """Launch the kernel (``mfhe_ntt_chain_fwd``/``_bwd``) for k chained
+    transforms on a CUDA tensor that passed ``check_input``.  Counts in
+    ``launches``; the caller counts in its own counter."""
+    global launches
+    n, L = tabs.n, tabs.num_limbs
     if not x.is_contiguous():
         raise ValueError("NTT kernel takes a contiguous tensor")
     if n > MAX_KERNEL_N:
@@ -236,17 +283,13 @@ def _launch(x: torch.Tensor, tabs: NTTTables, fwd: bool) -> torch.Tensor:
     if rows == 0:
         return out
     lib = library()
-    entry = lib.mfhe_ntt_fwd if fwd else lib.mfhe_ntt_bwd
     ptrs = [t.data_ptr() for t in tabs_used]
     logn = n.bit_length() - 1
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = entry(x.data_ptr(), out.data_ptr(), *ptrs, rows, L, logn, stream)
+        entry = lib.mfhe_ntt_chain_fwd if fwd else lib.mfhe_ntt_chain_bwd
+        err = entry(x.data_ptr(), out.data_ptr(), *ptrs, rows, L, logn, k, stream)
     if err:
         raise RuntimeError(f"NTT kernel launch failed: CUDA error {err}")
-    if fwd:
-        fwd_launches += 1
-    else:
-        bwd_launches += 1
     launches += 1
     return out

@@ -1,8 +1,9 @@
 """The negacyclic NTT in plain torch: a four-step product of exact matmuls.
 
 Counterpart of ``matrix_fhe_tpu/ops/mxu_ntt.py``, and the plain version of
-the CUDA kernel in ``ops/ntt_cuda.py``: CPU tensors take this path, and the
-kernel is held against it on the card.  With N = R*C and X = x viewed [R, C]:
+the CUDA kernel in ``ops/ntt_cuda.py`` (one transform, or ``ntt_chain_plain``
+for k chained ones) and ``ops/ntt_w22.py``: CPU tensors take this path, and
+the kernel is held against it on the card.  With N = R*C and X = x viewed [R, C]:
 
     forward:  out = (T .* (A @ X)) @ B^T
     inverse:  x   = Ainv @ (Tinv .* (out @ Binv^T))
@@ -112,3 +113,11 @@ def ntt_bwd_plain(x: torch.Tensor, tabs) -> torch.Tensor:
     w = torch.remainder(v.reshape(L, R, B, C) * tabs.fs_tinv[:, :, None, :], q[..., None])
     out = _matmul_mod(tabs.fs_ainv, _centered_f64(w, q[..., None]).reshape(L, R, B * C), q)
     return _back(out.reshape(L, R, B, C), x.shape, x.dtype)
+
+
+def ntt_chain_plain(x: torch.Tensor, tabs, k: int, fwd: bool = True) -> torch.Tensor:
+    """The forward (``fwd``) or inverse transform applied ``k`` times."""
+    step = ntt_fwd_plain if fwd else ntt_bwd_plain
+    for _ in range(k):
+        x = step(x, tabs)
+    return x

@@ -1,0 +1,43 @@
+"""PyTorch port: every public constructor puts its tensors on the card
+unless asked for another device.  Without a card, a call that names no
+device raises instead of building on the CPU; with one, it builds on the
+card.  Decided inside the test, not at import."""
+
+import pytest
+import torch
+
+from matrix_fhe_tpu_torch.fast import fckks, fring, frns
+from matrix_fhe_tpu_torch.ops import ntt_cuda, ntt_w22
+
+N = 1 << 5
+Q = ntt_cuda.find_v2_primes(N, 4)
+Q, P = Q[:2], Q[2:]
+W22 = ntt_w22.find_w22_primes(N, 2)
+
+
+def _zeros(*shape):
+    return torch.zeros(shape, dtype=torch.int32).numpy()
+
+
+# each builds with its default device and returns one of the tensors it made
+CONSTRUCTORS = {
+    "ntt_cuda.build_tables": lambda: ntt_cuda.build_tables(N, Q).psi,
+    "ntt_w22.build_tables": lambda: ntt_w22.build_tables(N, W22).psi,
+    "fring.new_fast_ring": lambda: fring.new_fast_ring(N, Q).moduli,
+    "frns.gen_fast_modup_constants": lambda: frns.gen_fast_modup_constants(Q, P).src_q_f64,
+    "frns.gen_fast_moddown_constants": lambda: frns.gen_fast_moddown_constants(Q, P).pinv_mod_q,
+    "frns.gen_fast_decomposer": lambda: frns.gen_fast_decomposer(Q, P).mucs[0].src_q_f64,
+    "fckks.context_from_arrays": lambda: fckks.context_from_arrays(
+        N, Q, P, _zeros(1, 2, 2, N), _zeros(1, 2, 2, N)).rlk_q,
+    "fckks.make_synthetic_context": lambda: fckks.make_synthetic_context(5, 2, 2)[1][0],
+}
+
+
+@pytest.mark.parametrize("name", list(CONSTRUCTORS))
+def test_constructor_defaults_to_the_card(name):
+    build = CONSTRUCTORS[name]
+    if torch.cuda.is_available():
+        assert build().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()

@@ -26,7 +26,8 @@ REPO = Path(__file__).resolve().parent.parent
 
 
 def test_port_imports_no_jax():
-    code = ("import sys, matrix_fhe_tpu_torch.fast.fckks; "
+    code = ("import sys, matrix_fhe_tpu_torch.fast.fckks, "
+            "matrix_fhe_tpu_torch.ops.ntt_w22; "
             "assert 'jax' not in sys.modules, 'jax imported'")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)

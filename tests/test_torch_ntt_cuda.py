@@ -1,4 +1,6 @@
-"""PyTorch port, the CUDA NTT kernel (csrc/ntt.cu) on the card.
+"""PyTorch port, the CUDA NTT kernel (csrc/ntt.cu) on the card, through its
+three wrappers: ntt_cuda.ntt_fwd/ntt_bwd, ntt_cuda.ntt_chain and
+ntt_w22.ntt_fwd/ntt_bwd.
 
 Each test holds the kernel bit-exact against the plain torch version
 (ops/ntt_plain.py) run on CPU copies of the same tensors.  Without a GPU
@@ -13,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from matrix_fhe_tpu_torch.ops import ntt_cuda, ntt_plain
+from matrix_fhe_tpu_torch.ops import ntt_cuda, ntt_plain, ntt_w22
 
 
 @pytest.fixture
@@ -103,3 +105,78 @@ def test_kernel_runs_on_the_current_stream(cuda):
         got = ntt_cuda.ntt_fwd(x, dev)
     torch.cuda.current_stream().wait_stream(side)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("k", [1, 2, 5])
+@pytest.mark.parametrize("logn", [10, 12, 14, 15])
+def test_chain_kernel_matches_plain(cuda, logn, k):
+    n = 1 << logn
+    moduli = ntt_cuda.find_v2_primes(n, 3)
+    cpu = ntt_cuda.build_tables(n, moduli, "cpu")
+    dev = ntt_cuda.build_tables(n, moduli, cuda)
+    x = _operands((2, 3, n), moduli, logn + k)
+    f = ntt_cuda.ntt_chain(x.to(cuda), dev, k)
+    b = ntt_cuda.ntt_chain(x.to(cuda), dev, k, fwd=False)
+    rt = ntt_cuda.ntt_chain(f, dev, k, fwd=False)
+    torch.cuda.synchronize()
+    assert f.dtype == torch.int32 and f.shape == x.shape
+    assert torch.equal(f.cpu(), ntt_plain.ntt_chain_plain(x, cpu, k, fwd=True))
+    assert torch.equal(b.cpu(), ntt_plain.ntt_chain_plain(x, cpu, k, fwd=False))
+    assert torch.equal(rt.cpu(), x)
+
+
+@pytest.mark.parametrize("shape", [(8, 4, 1 << 14), (2, 3, 1 << 10)])
+def test_w22_kernel_matches_plain(cuda, shape):
+    n = shape[-1]
+    moduli = ntt_w22.find_w22_primes(n, shape[-2])
+    cpu = ntt_w22.build_tables(n, moduli, "cpu")
+    dev = ntt_w22.build_tables(n, moduli, cuda)
+    x = _operands(shape, moduli, n)
+    f = ntt_w22.ntt_fwd(x.to(cuda), dev)
+    b = ntt_w22.ntt_bwd(x.to(cuda), dev)
+    rt = ntt_w22.ntt_bwd(f, dev)
+    torch.cuda.synchronize()
+    assert torch.equal(f.cpu(), ntt_plain.ntt_fwd_plain(x, cpu))
+    assert torch.equal(b.cpu(), ntt_plain.ntt_bwd_plain(x, cpu))
+    assert torch.equal(rt.cpu(), x)
+
+
+def test_chain_and_w22_wrappers_count_launches_and_reject_bad_input(cuda):
+    n = 1 << 10
+    moduli = ntt_w22.find_w22_primes(n, 2)
+    dev = ntt_cuda.build_tables(n, moduli, cuda)
+    w22 = ntt_w22.build_tables(n, moduli, cuda)
+    x = _operands((3, 2, n), moduli, 0).to(cuda)
+
+    def counts():
+        return (ntt_cuda.fwd_launches, ntt_cuda.bwd_launches,
+                ntt_cuda.chain_fwd_launches, ntt_cuda.chain_bwd_launches,
+                ntt_w22.w22_fwd_launches, ntt_w22.w22_bwd_launches, ntt_cuda.launches)
+
+    before = counts()
+    ntt_cuda.ntt_chain(ntt_cuda.ntt_chain(x, dev, 3), dev, 3, fwd=False)
+    ntt_cuda.ntt_chain(x, dev, 1)
+    ntt_w22.ntt_bwd(ntt_w22.ntt_fwd(x, w22), w22)
+    ntt_w22.ntt_fwd(x, w22)
+    after = counts()
+    assert [a - b for a, b in zip(after, before)] == [0, 0, 2, 1, 2, 1, 6]
+    with pytest.raises(TypeError):
+        ntt_cuda.ntt_chain(x.to(torch.int64), dev, 2)
+    with pytest.raises(TypeError):
+        ntt_w22.ntt_fwd(x.to(torch.int64), w22)
+    with pytest.raises(TypeError):
+        ntt_w22.ntt_fwd(x, dev)                           # not w22 tables
+    for k in (0, 2.0):
+        with pytest.raises(ValueError):
+            ntt_cuda.ntt_chain(x, dev, k)
+    for bad in (x.transpose(0, 1), x[..., ::2],
+                x.transpose(-1, -2).contiguous().transpose(-1, -2)):
+        with pytest.raises(ValueError):
+            ntt_cuda.ntt_chain(bad, dev, 2)
+        with pytest.raises(ValueError):
+            ntt_w22.ntt_bwd(bad, w22)
+    with pytest.raises(ValueError):
+        ntt_cuda.ntt_chain(x, ntt_cuda.build_tables(n, moduli, "cpu"), 2)
+    with pytest.raises(ValueError):
+        ntt_w22.ntt_fwd(x, ntt_w22.build_tables(n, moduli, "cpu"))
+    assert counts() == after
