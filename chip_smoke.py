@@ -8,10 +8,16 @@ two primes, 8 hoisted rotations):
 
 1. device: requires CUDA (exits non-zero without it) and prints the card's
    name and power limit as nvidia-smi reports them;
-2. build: compiles the NTT kernel (csrc/ntt.cu) from this checkout;
+2. build: compiles the NTT kernel (csrc/ntt.cu) from this checkout, one
+   library for each N the path runs (2^14, and 2^10 for phase 7), one nvcc
+   each, started together;
 3. kernel vs plain: at every NTT shape of the step, the kernel's forward and
    inverse are bit-identical to the plain torch version run on CPU copies,
-   inverse(forward(x)) == x, and both versions are timed on the card;
+   inverse(forward(x)) == x, and both versions are timed on the card; the
+   cluster size C the wrapper picks for the shape is printed, and beside the
+   kernel's time its device time with the launches queued back to back, with
+   L2 flushed before each launch (as the step finds it), and the wrapper's
+   host time a call;
 4. main path: three requests, each one mul_relin_rescale and one
    rotations_hoisted over the 8 galois elements, served from a synthetic
    context on the card.  The first request's outputs hash to the digests
@@ -30,7 +36,9 @@ w22 transform:
    transform over [64, 10, 2^14] (bench.py's dispatch form), on bench.py's
    primes and operands.  The forward chain equals 500 sequential ntt_fwd
    launches and the plain chain, the inverse chain returns x, and the rates
-   (NTTs per second) of both forms are printed beside the card;
+   (NTTs per second) of both forms are printed beside the card, with the
+   chain kernels' instructions a butterfly in their hot pass and their
+   registers and spills (tools/ntt_sass.py, from the built SASS);
 7. w22 transform (ntt_w22, the v1 kernel's counterpart, q < 2^22): a
    forward and inverse over [8, 4, 2^14] (tests/test_pallas_ntt.py's shape)
    returns x, and at that shape and at [2, 3, 2^10] the kernel is
@@ -42,8 +50,9 @@ w22; counts zeroed just before and read just after), max |kernel - plain|,
 the kernel's and plain version's times (phase 3's shapes summed, one launch
 each, for ntt_fwd/ntt_bwd; the path's shape for the others), and the bound:
 the larger of the bytes over the card's memory rate and the butterflies'
-integer operations over its int32 rate.  No single PyTorch call computes a
-negacyclic NTT mod q, so library_ms is null.  Then, as its last line,
+integer operations over its int32 rate.  Times in that line are CUDA-event
+means of launches issued back to back from the host (_event_ms).  No single
+PyTorch call computes a negacyclic NTT mod q, so library_ms is null.  Then, as its last line,
 {"ok": true, "device": {...}}.  Any failed check raises and exits non-zero.
 The script imports no jax.
 """
@@ -78,6 +87,8 @@ SOURCE = "matrix_fhe_tpu_torch/csrc/ntt.cu"
 BENCH_LIMBS, CHAIN_BATCH, CHAIN_K, DISPATCH_BATCH = 10, 24, 500, 64
 # tests/test_pallas_ntt.py:51, and a small ring
 W22_SHAPES = [(8, 4, 1 << 14), (2, 3, 1 << 10)]
+# log2 N of every launch of the path: the step's and the NTT bench's, and w22's
+PATH_LOGNS = sorted({LOGN} | {s[-1].bit_length() - 1 for s in W22_SHAPES})
 # The bound.  Bytes: each input read once (x, the twiddles and their Shoup
 # quotients), the output written once, at the H100 SXM's 3.35 TB/s.
 # Operations: 7 integer operations a butterfly (a Shoup product is two
@@ -111,6 +122,60 @@ def _event_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def _host_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean host time of one call of fn() (the wrapper's enqueue), the
+    device left to run behind it."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return host * 1e3 / iters
+
+
+def _hold_device(host_s: float) -> None:
+    """Keep the device busy for a while (a spin kernel) so that the launches
+    enqueued after it run back to back."""
+    torch.cuda._sleep(int(min(max(host_s * 1.5, 1e-3), 0.5) * 2e9))
+
+
+def _device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of fn() over ``iters`` launches queued behind a spin
+    kernel: the events time the device alone, without the host's gaps
+    between the launches of a kernel shorter than its wrapper's host time."""
+    host = _host_ms(fn, 1, warmup) / 1e3
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    _hold_device(host * iters)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def _flushed_ms(fn, flush: torch.Tensor, iters: int = 20) -> float:
+    """Mean device time of fn() with L2 flushed before each launch: a write
+    of ``flush`` (larger than the 50 MB L2) between launches, outside the
+    timed spans."""
+    fn()
+    torch.cuda.synchronize()
+    spans = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(iters)]
+    _hold_device(2e-4 * iters)
+    for start, stop in spans:
+        flush.zero_()
+        start.record()
+        fn()
+        stop.record()
+    torch.cuda.synchronize()
+    return sum(start.elapsed_time(stop) for start, stop in spans) / iters
 
 
 def _bound(rows: int, limbs: int, n: int, k: int, int32_ops_per_s: float):
@@ -151,11 +216,11 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}")
 
     # -- 2. build -------------------------------------------------------------
-    fresh = not ntt_cuda.library_path().exists()
     t0 = time.perf_counter()
-    ntt_cuda.library()
-    print(f"phase build: {'built' if fresh else 'loaded'} "
-          f"{ntt_cuda.library_path().name} in {time.perf_counter() - t0:.2f} s")
+    built = ntt_cuda.build(PATH_LOGNS)
+    print(f"phase build: built {len(built)} libraries, "
+          f"{', '.join(ntt_cuda.library_path(logn).name for logn in built)}, in "
+          f"{time.perf_counter() - t0:.2f} s")
 
     # -- 3. kernel vs plain at the step's NTT shapes ----------------------------
     n = 1 << LOGN
@@ -165,8 +230,13 @@ def main() -> int:
               ("decompose NTT q", (7, NUM_Q), Q), ("decompose NTT p", (7, NUM_P), P),
               ("mod_down INTT", (2, NUM_P), P), ("mod_down NTT", (2, NUM_Q), Q)]
     rng = np.random.default_rng(SEED)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     # per direction: max |kernel - plain| and the summed times over the shapes
     stats = {d: {"max_abs_err": 0, "ms": 0.0, "plain_ms": 0.0} for d in ("fwd", "bwd")}
+    # per direction, summed over the shapes: device time queued back to
+    # back, with L2 flushed, and the wrapper's host time a call
+    extra = {d: {"device": 0.0, "flushed": 0.0, "host": 0.0} for d in ("fwd", "bwd")}
     for what, lead, mods in shapes:
         tab_cpu = ntt_cuda.build_tables(n, mods, "cpu")
         tab_dev = ntt_cuda.build_tables(n, mods, dev)
@@ -194,9 +264,28 @@ def main() -> int:
             stats[d]["max_abs_err"] = max(stats[d]["max_abs_err"], err[d])
             stats[d]["ms"] += k
             stats[d]["plain_ms"] += p
-        print(f"phase kernel: {what:16s} {str(list(lead) + [n]):14s} "
+        c = ntt_cuda.geometry(int(np.prod(lead)), n, 1, sms)
+        more = {}
+        for d, kern in (("fwd", ntt_cuda.ntt_fwd), ("bwd", ntt_cuda.ntt_bwd)):
+            more[d] = {"device": _device_ms(lambda: kern(x, tab_dev)),
+                       "flushed": _flushed_ms(lambda: kern(x, tab_dev), flush),
+                       "host": _host_ms(lambda: kern(x, tab_dev))}
+            for key, v in more[d].items():
+                extra[d][key] += v
+        print(f"phase kernel: {what:16s} {str(list(lead) + [n]):14s} C={c} "
               f"kernel fwd {k_f:.4f} ms bwd {k_b:.4f} ms | "
               f"plain fwd {p_f:.4f} ms bwd {p_b:.4f} ms | bit-identical")
+        print("phase kernel:   fwd / bwd: device time queued {:.4f} / {:.4f} ms, "
+              "L2 flushed {:.4f} / {:.4f} ms, wrapper host time {:.4f} / {:.4f} ms "
+              "a call".format(*(more[d][key] for key in ("device", "flushed", "host")
+                                for d in ("fwd", "bwd"))))
+    print("phase kernel: six shapes summed, fwd / bwd: kernel {:.4f} / {:.4f} ms, "
+          "device time queued {:.4f} / {:.4f} ms, L2 flushed {:.4f} / {:.4f} ms, "
+          "wrapper host time {:.4f} / {:.4f} ms".format(
+              stats["fwd"]["ms"], stats["bwd"]["ms"],
+              *(extra[d][key] for key in ("device", "flushed", "host")
+                for d in ("fwd", "bwd"))))
+    del flush
 
     # -- 4. main path: three requests ------------------------------------------
     ctx, ops = fckks.make_synthetic_context(
@@ -275,7 +364,6 @@ def main() -> int:
     max_sm_mhz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
         capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     int32_ops_per_s = INT32_OPS_PER_CLOCK_PER_SM * sms * max_sm_mhz * 1e6
     print(f"bound: {HBM_BYTES_PER_S / 1e12} TB/s, {sms} SMs x "
           f"{INT32_OPS_PER_CLOCK_PER_SM} int32 op/clock at {max_sm_mhz} MHz = "
@@ -352,10 +440,23 @@ def main() -> int:
               f"kernel {stats[d]['ms']:.3f} ms ({stats[d]['ms'] / CHAIN_K * 1e3:.3f} us a "
               f"step, {rate:.0f} NTT/s) | plain {stats[d]['plain_ms']:.1f} ms | "
               f"bound {stats[d]['bound_ms']:.3f} ms by {stats[d]['bound_by']} | {smi}")
+    from tools import ntt_sass
+    funcs = ntt_sass.parse(ntt_sass.disassemble([LOGN]))
+    regs = ntt_sass.ptxas_report(ntt_sass.build_logs([LOGN]))
+    for d in ("fwd", "bwd"):
+        name = f"ntt_{d}_kernel<{LOGN}, 1>"
+        instrs, flies = ntt_sass.hot_pass(funcs[name])
+        assert flies == 32, f"{name}: hot pass of {flies} butterflies"
+        step_us = stats[f"chain_{d}"]["ms"] / CHAIN_K * 1e3
+        print(f"phase ntt path: {name} hot pass {instrs} instructions / {flies} "
+              f"butterflies = {instrs / flies:.2f} a butterfly; {regs[name]['registers']} "
+              f"registers, {regs[name]['spill_bytes']} spill bytes; {step_us:.3f} us a step")
     d_ms = _event_ms(lambda: ntt_cuda.ntt_fwd(xd, tabs))
+    d_dev = _device_ms(lambda: ntt_cuda.ntt_fwd(xd, tabs))
     d_bytes, d_ops = _bound(DISPATCH_BATCH * BENCH_LIMBS, BENCH_LIMBS, n, 1, int32_ops_per_s)
     print(f"phase ntt path: dispatch  [{DISPATCH_BATCH}, {BENCH_LIMBS}, {n}] ntt_fwd "
-          f"{d_ms:.4f} ms a launch ({DISPATCH_BATCH * BENCH_LIMBS / (d_ms / 1e3):.0f} NTT/s) | "
+          f"{d_ms:.4f} ms a launch ({DISPATCH_BATCH * BENCH_LIMBS / (d_ms / 1e3):.0f} NTT/s; "
+          f"device time queued {d_dev:.4f} ms) | "
           f"bound {max(d_bytes, d_ops):.4f} ms by "
           f"{'operations' if d_ops >= d_bytes else 'bytes'} | {smi}")
     print(f"phase ntt path: launches {path}; forward chain == {CHAIN_K} sequential "
@@ -388,13 +489,15 @@ def main() -> int:
             err = int((got.cpu().long() - plain(x_cpu, wt_cpu).long()).abs().max())
             assert err == 0, f"{d} {shape}: kernel != plain ({err})"
             k_ms = _event_ms(lambda: kern(x, wt_dev))
+            dev_ms = _device_ms(lambda: kern(x, wt_dev))
             p_ms = _event_ms(lambda: plain(x, wt_dev))
             entry = stats.setdefault(d, {"max_abs_err": 0})
             entry["max_abs_err"] = max(entry["max_abs_err"], err)
             if shape == w22_shape:
                 entry.update(ms=k_ms, plain_ms=p_ms, **_bound_entry(
                     [_bound(shape[0] * shape[1], shape[1], wn, 1, int32_ops_per_s)]))
-            line.append(f"{d} kernel {k_ms:.4f} ms plain {p_ms:.4f} ms")
+            line.append(f"{d} kernel {k_ms:.4f} ms (device time queued {dev_ms:.4f} ms) "
+                        f"plain {p_ms:.4f} ms")
         print(f"phase w22: {list(shape)} " + " | ".join(line) + " | bit-identical")
     print(f"phase w22: launches {w22_path}; inverse(forward(x)) == x")
     assert "jax" not in sys.modules

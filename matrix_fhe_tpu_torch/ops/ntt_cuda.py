@@ -11,11 +11,15 @@ bit-reversed order, canonical:
     be built or launched, the call raises;
   * a CPU tensor goes through the plain torch version (``ops/ntt_plain.py``).
 
-The kernel is compiled by ``nvcc`` for sm_90a into a plain C library at
-first use (``library()``), into ``matrix_fhe_tpu_torch/_build/`` under a name
+The kernel is compiled by ``nvcc`` for sm_90a into plain C libraries, one
+for each N, each at the first use of its N (``library(logn)``; ``build``
+builds several at once), into ``matrix_fhe_tpu_torch/_build/`` under names
 keyed by a hash of the source and flags, and bound with ctypes.  Nothing is
-built or loaded when this module is imported.  Table constructors put their
-tables on the card unless asked for another device.
+built or loaded when this module is imported.  Table constructors put their tables on the card
+unless asked for another device.
+
+A launch splits each row over a thread-block cluster of C CTAs, as
+``geometry`` picks from the rows, N, the step count and the card's SMs.
 """
 
 from __future__ import annotations
@@ -38,8 +42,14 @@ from matrix_fhe_tpu_torch.utils import primes as pr
 from matrix_fhe_tpu_torch.utils.device import resolve_device
 
 MAX_V2_MODULUS = 1 << 23
-# The kernel holds one row of N uint32 in shared memory (<= 128 KB).
+# The kernel holds one row of N uint32 in shared memory (<= 132 KB, padded).
 MAX_KERNEL_N = 1 << 15
+# Rows can be split over clusters of at most 8 CTAs (the portable size)
+# from N = 2^10 on (csrc/ntt.cu: kMinClusterLogN); geometry splits them
+# from N = 2^13 on.
+MAX_CLUSTER = 8
+MIN_CLUSTER_N = 1 << 10
+MIN_SPLIT_N = 1 << 13
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "ntt.cu"
@@ -171,33 +181,53 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the NTT kernel cannot be built")
 
 
-def library_path() -> Path:
+# One library for each N: each holds that size's kernels, one a cluster size.
+LOGNS = range(4, MAX_KERNEL_N.bit_length())
+
+
+def library_path(logn: int) -> Path:
     key = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"ntt-{key.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"ntt{logn}-{key.hexdigest()[:16]}.so"
+
+
+def build(logns=LOGNS) -> list[int]:
+    """Build the libraries of the sizes ``logns`` (log2 N) that are missing
+    (once per source hash), one ``nvcc`` for each N, all started together.
+    The compiler's output, ptxas's register and spill report included, is
+    kept beside each library as ``<name>.log``.  Returns the sizes built."""
+    todo = [logn for logn in logns if not library_path(logn).exists()]
+    if not todo:
+        return todo
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = {}
+        for logn in todo:
+            so = library_path(logn)
+            with open(so.with_suffix(".log"), "w") as log:
+                procs[logn] = subprocess.Popen(
+                    [_nvcc(), *NVCC_FLAGS, f"-DMFHE_NTT_LOGN={logn}",
+                     "-o", str(Path(tmp) / so.name), str(SOURCE)],
+                    stdout=log, stderr=subprocess.STDOUT)
+        failed = [logn for logn, proc in procs.items() if proc.wait() != 0]
+        if failed:
+            log = library_path(failed[0]).with_suffix(".log").read_text()
+            raise RuntimeError(f"nvcc failed for log2 N in {failed}:\n{log}")
+        for logn in todo:
+            os.replace(Path(tmp) / library_path(logn).name, library_path(logn))
+    return todo
 
 
 @functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
-    """Build (once per source hash) and load the kernel library.  The
-    compiler's output, ptxas's register and shared-memory report included,
-    is kept beside the library as ``<name>.log``."""
-    so = library_path()
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-            out = Path(tmp) / so.name
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(SOURCE)],
-                capture_output=True, text=True, check=False)
-            so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-            os.replace(out, so)
-    lib = ctypes.CDLL(str(so))
+def library(logn: int) -> ctypes.CDLL:
+    """The kernel library of N = 2^logn, built (that size alone) at first
+    use."""
+    if logn not in LOGNS:
+        raise NotImplementedError(f"no NTT kernel for N = 2^{logn}")
+    build([logn])
+    lib = ctypes.CDLL(str(library_path(logn)))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.mfhe_ntt_chain_fwd.argtypes = [p, p, p, p, p, i, i, i, i, p]
-    lib.mfhe_ntt_chain_bwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
+    lib.mfhe_ntt_chain_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.mfhe_ntt_chain_bwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
     lib.mfhe_ntt_chain_fwd.restype = lib.mfhe_ntt_chain_bwd.restype = i
     return lib
 
@@ -209,7 +239,7 @@ def library() -> ctypes.CDLL:
 def ntt_fwd(x: torch.Tensor, tabs: NTTTables) -> torch.Tensor:
     global fwd_launches
     check_input(x, tabs)
-    if x.device.type == "cpu":
+    if not x.is_cuda:
         return ntt_plain.ntt_fwd_plain(x, tabs)
     out = launch(x, tabs, fwd=True)
     fwd_launches += 1
@@ -219,7 +249,7 @@ def ntt_fwd(x: torch.Tensor, tabs: NTTTables) -> torch.Tensor:
 def ntt_bwd(x: torch.Tensor, tabs: NTTTables) -> torch.Tensor:
     global bwd_launches
     check_input(x, tabs)
-    if x.device.type == "cpu":
+    if not x.is_cuda:
         return ntt_plain.ntt_bwd_plain(x, tabs)
     out = launch(x, tabs, fwd=False)
     bwd_launches += 1
@@ -236,7 +266,7 @@ def ntt_chain(x: torch.Tensor, tabs: NTTTables, k: int,
     if not isinstance(k, int) or k < 1:
         raise ValueError(f"k must be an int >= 1, got {k!r}")
     check_input(x, tabs)
-    if x.device.type == "cpu":
+    if not x.is_cuda:
         return ntt_plain.ntt_chain_plain(x, tabs, k, fwd)
     out = launch(x, tabs, fwd, k)
     if fwd:
@@ -254,41 +284,85 @@ def check_input(x: torch.Tensor, tabs: NTTTables) -> None:
         raise TypeError(f"the NTT takes int32, got {x.dtype}")
     if x.dim() < 2 or x.shape[-1] != n or x.shape[-2] != L:
         raise ValueError(f"shape {tuple(x.shape)} is not [..., {L}, {n}]")
-    if x.device.type not in ("cpu", "cuda"):
+    if not x.is_cuda and x.device.type != "cpu":
         raise ValueError(f"no NTT for device {x.device}")
 
 
-def launch(x: torch.Tensor, tabs: NTTTables, fwd: bool, k: int = 1) -> torch.Tensor:
+def geometry(rows: int, n: int, k: int, sms: int) -> int:
+    """CTAs a row of N words is split over (the cluster size C) in a launch
+    of k transforms of ``rows`` rows on a card of ``sms`` SMs.  The rule
+    follows ``tools/ntt_cluster_sweep.py`` on an H100 (``PERF.md``: one
+    transform over 6 to 640 rows and a chain over 24 and 240, N = 2^10 to
+    2^15):
+      * C = 1 below N = 2^13, where one CTA transforms a row about as fast
+        as a cluster (within 0.4 us at 6-10 rows, the fastest from 40 rows
+        on, and for a chain);
+      * C = 8, the largest portable cluster, for a launch of few rows
+        (rows * 8 <= 3 * sms: the fastest at 6-40 rows, and for a chain
+        over 24 within 3% of it) and for one transform from N = 2^14 on
+        (the fastest or within 12% of it at every row count; at 133 rows
+        and C = 1 one SM holds two of the 512-thread CTAs, and the launch
+        took 1.4-1.5x C = 8's time);
+      * otherwise the smallest power of two C <= 8 with rows * C >= sms: a
+        launch that covers the card gains little from a split row, which
+        pays a pass through distributed shared memory and two cluster
+        barriers (a chain over 240 rows: C = 1 the fastest)."""
+    if n > MAX_KERNEL_N:
+        raise NotImplementedError(
+            f"N={n}: the NTT kernel holds a row in shared memory, N <= {MAX_KERNEL_N}")
+    if n < MIN_SPLIT_N:
+        return 1
+    if rows * MAX_CLUSTER <= 3 * sms or (k == 1 and n >= 1 << 14):
+        return MAX_CLUSTER
+    c = 1
+    while c < MAX_CLUSTER and rows * c < sms:
+        c *= 2
+    return c
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: int) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def launch(x: torch.Tensor, tabs: NTTTables, fwd: bool, k: int = 1,
+           cluster: int | None = None) -> torch.Tensor:
     """Launch the kernel (``mfhe_ntt_chain_fwd``/``_bwd``) for k chained
-    transforms on a CUDA tensor that passed ``check_input``.  Counts in
+    transforms on a CUDA tensor that passed ``check_input``, each row split
+    over ``cluster`` CTAs (by default ``geometry``'s choice).  Counts in
     ``launches``; the caller counts in its own counter."""
     global launches
     n, L = tabs.n, tabs.num_limbs
     if not x.is_contiguous():
         raise ValueError("NTT kernel takes a contiguous tensor")
-    if n > MAX_KERNEL_N:
-        raise NotImplementedError(
-            f"N={n}: the NTT kernel holds a row in shared memory, N <= {MAX_KERNEL_N}")
+    rows = x.numel() // n
+    dev = x.get_device()
+    if cluster is None:
+        cluster = geometry(rows, n, k, _sm_count(dev))
     if fwd:
         tabs_used = (tabs.psi, tabs.psi_shoup, tabs.moduli)
     else:
         tabs_used = (tabs.ipsi, tabs.ipsi_shoup, tabs.moduli, tabs.ninv,
                      tabs.ninv_shoup)
+    # Device indices (ints), not torch.device objects: the step launches
+    # the kernel ~30 times a request and is bound by the host.
     for t in tabs_used:
-        if t.device != x.device or not t.is_contiguous():
+        if t.get_device() != dev or not t.is_contiguous():
             raise ValueError(
                 f"NTT tables must be contiguous on {x.device}, found {t.device}")
+    ptrs = [t.data_ptr() for t in tabs_used]
+    if ptrs[0] % 16 or ptrs[1] % 16:
+        raise ValueError("NTT twiddle tables must start on 16 bytes (vector loads)")
     out = torch.empty_like(x)
-    rows = x.numel() // n
     if rows == 0:
         return out
-    lib = library()
-    ptrs = [t.data_ptr() for t in tabs_used]
     logn = n.bit_length() - 1
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        entry = lib.mfhe_ntt_chain_fwd if fwd else lib.mfhe_ntt_chain_bwd
-        err = entry(x.data_ptr(), out.data_ptr(), *ptrs, rows, L, logn, k, stream)
+    entry = library(logn).mfhe_ntt_chain_fwd if fwd else library(logn).mfhe_ntt_chain_bwd
+    # The current stream of x's device as a raw handle (what
+    # torch.cuda.current_stream(dev).cuda_stream gives, without building a
+    # Stream object); the C entry makes dev current for the launch.
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    err = entry(x.data_ptr(), out.data_ptr(), *ptrs, rows, L, logn, k, cluster, dev, stream)
     if err:
         raise RuntimeError(f"NTT kernel launch failed: CUDA error {err}")
     launches += 1

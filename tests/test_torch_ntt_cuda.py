@@ -51,7 +51,8 @@ def test_kernel_matches_plain_every_size(cuda, logn):
     _check(_operands((2, 3, n), moduli, logn), n, moduli, cuda)
 
 
-@pytest.mark.parametrize("shape", [(19,), (7, 19), (2, 3)])
+@pytest.mark.parametrize("shape", [(19,), (7, 19), (2, 3), (17,), (7, 3), (2, 19),
+                                   (1, 19), (1, 3)])
 def test_kernel_matches_plain_step_shapes(cuda, shape):
     n = 1 << 14
     moduli = ntt_cuda.find_v2_primes(n, 22)[:shape[-1]]
@@ -93,18 +94,67 @@ def test_wrapper_counts_launches_and_rejects_bad_input(cuda):
                          ntt_cuda.build_tables(big, ntt_cuda.find_v2_primes(big, 1), cuda))
 
 
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("logn", [10, 14, 15])
+def test_kernel_matches_plain_every_cluster_size(cuda, logn, cluster):
+    """Rows split over `cluster` CTAs, forced through launch's geometry."""
+    n = 1 << logn
+    moduli = ntt_cuda.find_v2_primes(n, 3)
+    cpu = ntt_cuda.build_tables(n, moduli, "cpu")
+    dev = ntt_cuda.build_tables(n, moduli, cuda)
+    x = _operands((2, 3, n), moduli, logn * 8 + cluster)
+    f = ntt_cuda.launch(x.to(cuda), dev, True, cluster=cluster)
+    b = ntt_cuda.launch(x.to(cuda), dev, False, cluster=cluster)
+    rt = ntt_cuda.launch(f, dev, False, cluster=cluster)
+    torch.cuda.synchronize()
+    assert torch.equal(f.cpu(), ntt_plain.ntt_fwd_plain(x, cpu))
+    assert torch.equal(b.cpu(), ntt_plain.ntt_bwd_plain(x, cpu))
+    assert torch.equal(rt.cpu(), x)
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 8])
+@pytest.mark.parametrize("k", [1, 2, 5])
+def test_chain_kernel_matches_plain_over_a_cluster(cuda, k, cluster):
+    n = 1 << 14
+    moduli = ntt_cuda.find_v2_primes(n, 3)
+    cpu = ntt_cuda.build_tables(n, moduli, "cpu")
+    dev = ntt_cuda.build_tables(n, moduli, cuda)
+    x = _operands((1, 3, n), moduli, k + cluster)
+    f = ntt_cuda.launch(x.to(cuda), dev, True, k, cluster=cluster)
+    b = ntt_cuda.launch(x.to(cuda), dev, False, k, cluster=cluster)
+    torch.cuda.synchronize()
+    assert torch.equal(f.cpu(), ntt_plain.ntt_chain_plain(x, cpu, k, fwd=True))
+    assert torch.equal(b.cpu(), ntt_plain.ntt_chain_plain(x, cpu, k, fwd=False))
+
+
+def test_refused_launch_raises(cuda):
+    n = 1 << 9
+    moduli = ntt_cuda.find_v2_primes(n, 2)
+    dev = ntt_cuda.build_tables(n, moduli, cuda)
+    x = _operands((1, 2, n), moduli, 0).to(cuda)
+    before = ntt_cuda.launches
+    for cluster in (16, 3, 2):     # no such cluster size; no cluster below N = 2^10
+        with pytest.raises(RuntimeError):
+            ntt_cuda.launch(x, dev, True, cluster=cluster)
+        with pytest.raises(RuntimeError):
+            ntt_cuda.launch(x, dev, False, cluster=cluster)
+    assert ntt_cuda.launches == before
+
+
 def test_kernel_runs_on_the_current_stream(cuda):
     n = 1 << 14
     moduli = ntt_cuda.find_v2_primes(n, 4)
     dev = ntt_cuda.build_tables(n, moduli, cuda)
     x = _operands((8, 4, n), moduli, 1).to(cuda)
-    want = ntt_cuda.ntt_fwd(x, dev)
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        got = ntt_cuda.ntt_fwd(x, dev)
-    torch.cuda.current_stream().wait_stream(side)
-    assert torch.equal(got, want)
+    for cluster in (1, 8):            # one CTA a row, and a row over a cluster
+        want = ntt_cuda.launch(x, dev, True, cluster=cluster)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            got = ntt_cuda.launch(x, dev, True, cluster=cluster)
+            back = ntt_cuda.launch(got, dev, False, cluster=cluster)
+        torch.cuda.current_stream().wait_stream(side)
+        assert torch.equal(got, want) and torch.equal(back, x)
 
 
 @pytest.mark.parametrize("k", [1, 2, 5])

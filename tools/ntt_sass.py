@@ -1,17 +1,25 @@
-"""Instruction count of the NTT kernels' butterfly loops, from the built SASS.
+"""Instructions a butterfly of the NTT kernels' passes, from the built SASS.
 
     python tools/ntt_sass.py [--out PATH]
 
-Builds (or loads) the port's kernel library (``csrc/ntt.cu``, through
-``ops/ntt_cuda.library()``), disassembles it with ``cuobjdump -sass`` and,
-for each kernel, finds the innermost loops (a branch back to an earlier
-address, with no other such branch inside) and prints each one's length and
-mix of opcodes.  A butterfly loop is one with a high multiply (``IMAD.HI``)
-that stores two shared-memory words a butterfly (``STS``): for it the
-instructions per butterfly are printed too.  The full disassembly goes to
-``--out`` (by default beside the library, in ``matrix_fhe_tpu_torch/_build/``).
-Needs the CUDA toolkit (``nvcc``, ``cuobjdump``); no GPU and no
-jax.
+Builds (or loads) the port's kernel libraries (``csrc/ntt.cu``, one for each
+N, through ``ops/ntt_cuda.build()``), disassembles them with
+``cuobjdump -sass`` and,
+for each kernel (``ntt_fwd_kernel<log2 N, C>``, ``ntt_bwd_kernel<...>``),
+finds its pass bodies: a pass is the unrolled code of one group of 2^R
+words (R stages in registers), either the body of a loop over groups (an
+innermost loop: a branch back to an earlier address, with no other such
+branch inside) or, where a thread has one group, the straight code between
+two barriers.  A pass body's Shoup products are its high multiplies
+(``IMAD.HI``): one a butterfly, plus one a word where the pass applies
+N^-1.  For each body it prints the instructions, the products and the
+instructions a product; the hot pass of a kernel is its body with the most
+products (R = 4, no N^-1: 32 butterflies), and its instructions a butterfly
+are the figure to hold against the 7 operations of a butterfly.  Registers
+and spills come from ptxas's report in the build log beside each library.
+The full disassembly goes to ``--out`` (by default beside the libraries, in
+``matrix_fhe_tpu_torch/_build/``).  Needs the CUDA toolkit (``nvcc``,
+``cuobjdump``); no GPU and no jax.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ from matrix_fhe_tpu_torch.ops import ntt_cuda  # noqa: E402
 
 _FUNC = re.compile(r"^\s*Function : (\S+)")
 _INSTR = re.compile(r"^\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+_KERNEL = re.compile(r"(ntt_(?:fwd|bwd)_kernel)ILi(\d+)ELi(\d+)E")
 
 
 def _cuobjdump() -> str:
@@ -39,13 +48,19 @@ def _cuobjdump() -> str:
     return str(Path(ntt_cuda._nvcc()).parent / "cuobjdump")
 
 
+def label(mangled: str) -> str:
+    """``ntt_fwd_kernel<14, 1>`` for a mangled kernel name."""
+    m = _KERNEL.search(mangled)
+    return f"{m.group(1)}<{m.group(2)}, {m.group(3)}>" if m else mangled
+
+
 def parse(sass: str) -> dict[str, list[tuple[int, str]]]:
-    """kernel name -> its (address, instruction) pairs."""
+    """kernel label -> its (address, instruction) pairs."""
     funcs: dict[str, list[tuple[int, str]]] = {}
     cur = None
     for line in sass.splitlines():
         if m := _FUNC.match(line):
-            cur = m.group(1)
+            cur = label(m.group(1))
             funcs[cur] = []
         elif cur and (m := _INSTR.match(line)):
             funcs[cur].append((int(m.group(1), 16), m.group(2)))
@@ -60,41 +75,102 @@ def opcode(text: str) -> str:
     return _unpredicated(text).split(" ")[0]
 
 
-def loops(instrs: list[tuple[int, str]]):
-    """Instruction lists of the innermost loops: from a backward branch's
-    target address to the branch, holding no other backward branch."""
+def loops(instrs: list[tuple[int, str]]) -> list[tuple[int, int]]:
+    """(first, last) addresses of the innermost loops: from a backward
+    branch's target to the branch, holding no other backward branch."""
     spans = []
     for addr, text in instrs:
         m = re.fullmatch(r"BRA\S* (0x[0-9a-f]+)", _unpredicated(text))
         if m and int(m.group(1), 16) < addr:
             spans.append((int(m.group(1), 16), addr))
-    for lo, hi in spans:
-        if not any(lo <= end < hi for _, end in spans):
-            yield [t for a, t in instrs if lo <= a <= hi]
+    return [(lo, hi) for lo, hi in spans
+            if not any(lo <= end < hi for _, end in spans)]
+
+
+def _is_barrier(op: str) -> bool:
+    return op.startswith("BAR") or "CGABAR" in op
+
+
+def passes(instrs: list[tuple[int, str]]) -> list[list[str]]:
+    """Opcodes of each pass body (see the module's docstring)."""
+    def products(body):
+        return sum(op.startswith("IMAD.HI") for op in body)
+
+    spans = loops(instrs)
+    bodies = [[opcode(t) for a, t in instrs if lo <= a <= hi] for lo, hi in spans]
+    bodies = [b for b in bodies if products(b)]
+    in_loop = {a for lo, hi in spans for a, _ in instrs if lo <= a <= hi}
+    segment: list[str] = []
+    for addr, text in instrs:
+        op = opcode(text)
+        if _is_barrier(op) or addr in in_loop:
+            if products(segment):
+                bodies.append(segment)
+            segment = []
+        else:
+            segment.append(op)
+    return bodies
+
+
+def hot_pass(instrs: list[tuple[int, str]]) -> tuple[int, int]:
+    """(instructions, Shoup products) of the pass body with the most
+    products; (0, 0) if the kernel has none."""
+    best = max(passes(instrs), key=lambda b: sum(op.startswith("IMAD.HI") for op in b),
+               default=[])
+    return len(best), sum(op.startswith("IMAD.HI") for op in best)
+
+
+def ptxas_report(log: str) -> dict[str, dict[str, int]]:
+    """kernel label -> registers and spill bytes, from ``nvcc -Xptxas -v``."""
+    out: dict[str, dict[str, int]] = {}
+    cur = None
+    for line in log.splitlines():
+        if m := re.search(r"(?:Compiling entry function|Function properties for) '?(\S+?)'?$",
+                          line.strip()):
+            cur = label(m.group(1))
+            out.setdefault(cur, {})
+        elif cur and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            out[cur]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        elif cur and (m := re.search(r"Used (\d+) registers", line)):
+            out[cur]["registers"] = int(m.group(1))
+    return out
+
+
+def disassemble(logns=ntt_cuda.LOGNS) -> str:
+    """SASS of the libraries of the sizes ``logns``, built first if missing."""
+    ntt_cuda.build(logns)
+    return "".join(
+        subprocess.run([_cuobjdump(), "-sass", str(ntt_cuda.library_path(logn))],
+                       capture_output=True, text=True, check=True, timeout=300).stdout
+        for logn in logns)
+
+
+def build_logs(logns=ntt_cuda.LOGNS) -> str:
+    return "".join(ntt_cuda.library_path(logn).with_suffix(".log").read_text()
+                   for logn in logns)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=str(ntt_cuda.BUILD_DIR / "ntt_sass.txt"))
     args = ap.parse_args()
-    so = ntt_cuda.library_path()
-    ntt_cuda.library()
-    sass = subprocess.run([_cuobjdump(), "-sass", str(so)], capture_output=True,
-                          text=True, check=True, timeout=300).stdout
+    sass = disassemble()
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(sass)
-    print(f"SASS of {so.name} -> {out}")
-    for name, instrs in parse(sass).items():
-        print(f"{name}: {len(instrs)} instructions")
-        for loop in loops(instrs):
-            body = [opcode(t) for t in loop]
-            mulhi = any(op.startswith("IMAD.HI") for op in body)
-            flies = sum(op.startswith("STS") for op in body) // 2 if mulhi else 0
-            mix = ", ".join(f"{op} {c}" for op, c in collections.Counter(body).most_common())
-            per = (f"{flies} butterflies, {len(body) / flies:.2f} a butterfly; "
-                   if flies else "")
-            print(f"  loop of {len(body)} instructions: {per}{mix}")
+    print(f"SASS of {ntt_cuda.library_path(14).name} and the other sizes -> {out}")
+    regs = ptxas_report(build_logs())
+    for name, instrs in sorted(parse(sass).items()):
+        r = regs.get(name, {})
+        n, p = hot_pass(instrs)
+        hot = f"hot pass {n} instructions / {p} butterflies = {n / p:.2f} a butterfly" if p else "no pass"
+        print(f"{name}: {len(instrs)} instructions, {r.get('registers', '?')} registers, "
+              f"{r.get('spill_bytes', '?')} spill bytes; {hot}")
+        for body in passes(instrs):
+            prods = sum(op.startswith("IMAD.HI") for op in body)
+            mix = ", ".join(f"{op} {c}" for op, c in collections.Counter(body).most_common(8))
+            print(f"  pass of {len(body)} instructions, {prods} Shoup products, "
+                  f"{len(body) / prods:.2f} a product: {mix}")
     return 0
 
 
