@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path at the bench shape of the JAX package
+Drives the port's main paths at the bench shape of the JAX package
 (bench.py: logN = 14, 19 q-limbs + 3 p-limbs of primes < 2^23, rescale by
 two primes, 8 hoisted rotations):
 
@@ -44,9 +44,34 @@ w22 transform:
    returns x, and at that shape and at [2, 3, 2^10] the kernel is
    bit-identical to the plain version.
 
+Then the setup path and a real CKKS session, the second main path:
+
+8. int64 words wrap (* + -) and shift (>>) on the card as on the CPU (the
+   u64 path holds 64-bit words in int64).  Then one session at the bench
+   shape through the user's entry points, with real keys: the parameters
+   (scale 2^45), the secret, relinearization and 8 galois keys (rotations
+   by 1..8), FastEncoder.encode + encrypt of two vectors of 8192 complex
+   slots, FastEvaluator.mul_relin then rescale twice, rotate_hoisted over
+   the 8 rotations, decrypt + decode + precision_stats; each stage timed
+   (host clock around work ending in a synchronize) in a first, cold pass
+   (the per-level contexts and the caching allocator's blocks made on first
+   use) and again in a warm pass with the same seeds, and the cold pass's
+   peak device memory.  Every draw comes from a CPU generator of its own seed.
+   Checks: B1 launched the expected number of times for the multiply and
+   for the rotations (counts zeroed before each, read after) in both
+   passes, and the warm pass gives the cold pass's keys and outputs; the
+   product
+   equals fckks.mul_relin_rescale on make_context's keys; the decoded
+   product and rotations reach the precision floor (the JAX package's, less
+   1 bit, tools/port_precision_floor.py); and the same code on the CPU with
+   the same seeds gives the same secret and relinearization keys, the galois
+   keys of rotations 1 and 2, both ciphertexts, the product, the rotations
+   (from the card's galois keys) and the decoded values, bit for bit.
+
 Prints a JSON line of per-kernel results, one entry per kernel entry point:
 launches on its path (phase 4 for ntt_fwd/ntt_bwd, 6 for the chain, 7 for
-w22; counts zeroed just before and read just after), max |kernel - plain|,
+w22; counts zeroed just before each run and read just after; ntt_fwd/ntt_bwd
+also give launches_by_path, phase 4's and phase 8's cold pass apart), max |kernel - plain|,
 the kernel's and plain version's times (phase 3's shapes summed, one launch
 each, for ntt_fwd/ntt_bwd; the path's shape for the others), and the bound:
 the larger of the bytes over the card's memory rate and the butterflies'
@@ -98,6 +123,25 @@ PATH_LOGNS = sorted({LOGN} | {s[-1].bit_length() - 1 for s in W22_SHAPES})
 # 9.0 the multiplies run on the FMA pipe and the adds, compares and selects
 # on the ALU pipe, 64 a clock each, so a mix of both issues at 128 a clock
 # (4 schedulers x 32 lanes).  The per-element reductions are left out (< 5%).
+# Phase 8, the real-key CKKS session: scale 2^45 (bench.py:150-153's pair
+# budget: the two primes a pair of rescales drops, q18 q17, are 2^44.56),
+# galois keys for rotations by 1..8, one CPU generator a draw site
+SESSION_LOG_SCALE = 45
+SESSION_ROTATIONS = tuple(range(1, 9))
+# galois keys the CPU reference builds again (the rotations by 1 and 2); the
+# other six are held through the rotations they give on the CPU
+CPU_GALOIS = SESSION_ROTATIONS[:2]
+# tools/port_precision_floor.py, the JAX package on the CPU with the same
+# parameters and vectors (JAX's own keys and draws): min precision 30.9659
+# bits for the product, 25.1012 for the worst of the 8 rotations.  The floor
+# is 1 bit below.
+PRECISION_FLOOR = {"product": 30.9659 - 1, "rotations": 25.1012 - 1}
+# B1 launches: FastEvaluator.mul_relin (decompose 1 INTT + 2 NTT, ModDown
+# 1 + 1), then two rescales (1 INTT + 1 NTT for each of the two parts);
+# rotate_hoisted over G elements (decompose 1 + 2, ModDown 1 + 1 each)
+SESSION_LAUNCHES = {
+    "multiply": {"fwd": 3 + 4, "bwd": 2 + 4},
+    "rotations": {"fwd": 2 + len(SESSION_ROTATIONS), "bwd": 1 + len(SESSION_ROTATIONS)}}
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_BUTTERFLY = 7
 INT32_OPS_PER_CLOCK_PER_SM = 128
@@ -196,6 +240,144 @@ def _bound_entry(parts) -> dict:
 def _operands(rng, shape, moduli) -> torch.Tensor:
     hi = np.array(moduli, dtype=np.int64)[:, None]
     return torch.from_numpy((rng.integers(0, 1 << 62, shape) % hi).astype(np.int32))
+
+
+def _session_vectors(slots: int):
+    """tools/port_precision_floor.py:vectors: the same draws."""
+    rng = np.random.default_rng(SEED)
+    return [rng.uniform(-1, 1, slots) + 1j * rng.uniform(-1, 1, slots) for _ in range(2)]
+
+
+def _gen(site: int) -> torch.Generator:
+    """The CPU generator of one draw site (a key, a ciphertext): the card's
+    session and the CPU reference draw the same arrays."""
+    return torch.Generator().manual_seed(1000 * SEED + site)
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _timed(times: dict, name: str, device, fn):
+    _sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(device)
+    times[name] = (time.perf_counter() - t0) * 1e3
+    return out
+
+
+def session_params(device, logn=LOGN, num_q=NUM_Q, num_p=NUM_P):
+    from matrix_fhe_tpu_torch.fast import fring
+    from matrix_fhe_tpu_torch.schemes import ckks
+    moduli = fring.find_fast_primes(1 << logn, num_q + num_p)
+    return ckks.new_parameters(ckks.CKKSParametersLiteral(
+        logn=logn, q=tuple(moduli[:num_q]), p=tuple(moduli[num_q:]),
+        log_default_scale=SESSION_LOG_SCALE), device=device)
+
+
+def session_keys(params, rotations, times: dict):
+    """Secret, relinearization and galois keys through the user's entry
+    points, each from its own generator."""
+    from matrix_fhe_tpu_torch.rlwe import keys as K
+    dev = params.device
+    sk = _timed(times, "keygen secret", dev, lambda: K.gen_secret_key(_gen(1), params))
+    rlk = _timed(times, "keygen relinearization", dev,
+                 lambda: K.gen_relinearization_key(_gen(2), params, sk))
+    gks = _timed(times, f"keygen galois x{len(rotations)}", dev, lambda: {
+        params.galois_element(k): K.gen_galois_key(_gen(10 + k), params, sk,
+                                                   params.galois_element(k))
+        for k in rotations})
+    return sk, rlk, gks
+
+
+def session_run(params, sk, rlk, gks, rotations, times: dict) -> dict:
+    """Encode and encrypt two vectors, multiply and rescale twice on the
+    fast path, rotate the first over ``rotations``, decrypt and decode."""
+    from matrix_fhe_tpu_torch.fast import feval
+    from matrix_fhe_tpu_torch.ops import ntt_cuda
+    from matrix_fhe_tpu_torch.rlwe import decryptor, encryptor
+    from matrix_fhe_tpu_torch.schemes import ckks
+    dev = params.device
+    enc = feval.FastEncoder(params)
+    v1, v2 = _session_vectors(params.max_slots)
+
+    def encrypt(v, site):
+        return feval.ct_to_fast(encryptor.encrypt(_gen(site), params, sk, enc.encode(v)))
+
+    ca = _timed(times, "encode + encrypt", dev, lambda: encrypt(v1, 51))
+    cb = encrypt(v2, 52)
+    fast = feval.make_fast_evaluator(params, rlk, gks)
+    counts = {}
+    for what, fn in (("multiply", lambda: fast.rescale(fast.rescale(fast.mul_relin(ca, cb)))),
+                     ("rotations", lambda: fast.rotate_hoisted(ca, list(rotations)))):
+        _sync(dev)
+        ntt_cuda.fwd_launches = ntt_cuda.bwd_launches = 0
+        out = _timed(times, what, dev, fn)
+        counts[what] = {"fwd": ntt_cuda.fwd_launches, "bwd": ntt_cuda.bwd_launches}
+        if what == "multiply":
+            prod = out
+        else:
+            rots = out
+
+    def decode(ct):
+        return enc.decode(decryptor.decrypt(params, sk, feval.ct_to_u64(ct)))
+
+    dec_prod = _timed(times, "decrypt + decode", dev, lambda: decode(prod))
+    dec_rots = {k: decode(rots[k]) for k in rotations}
+    prec = {"product": ckks.precision_stats(v1 * v2, dec_prod).min_precision,
+            "rotations": min(ckks.precision_stats(np.roll(v1, -k), dec_rots[k]).min_precision
+                             for k in rotations)}
+    return {"cts": (ca, cb), "prod": prod, "rots": rots, "dec_prod": dec_prod,
+            "dec_rots": dec_rots, "precision": prec, "counts": counts}
+
+
+def _same(a, b) -> bool:
+    """Equal tensors (b moved to a's device), field by field through keys
+    and ciphertexts."""
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b.to(a.device))
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    if hasattr(a, "__dataclass_fields__"):
+        return all(_same(getattr(a, f), getattr(b, f)) for f in a.__dataclass_fields__)
+    if isinstance(a, np.ndarray):
+        return np.array_equal(a, b)
+    return a == b
+
+
+def _to_cpu(gk):
+    import dataclasses
+    g = gk.gadget
+    return dataclasses.replace(gk, gadget=dataclasses.replace(
+        g, q=g.q.cpu(), p=None if g.p is None else g.p.cpu()))
+
+
+def check_int64_wrap(dev) -> None:
+    """The u64 path holds 64-bit words in int64 and needs * + - to wrap mod
+    2^64 and >> to be arithmetic on the card as on the CPU."""
+    from matrix_fhe_tpu_torch.ops import modmath as mm
+    rng = np.random.default_rng(SEED)
+    a = rng.integers(np.iinfo(np.int64).min, np.iinfo(np.int64).max, 1 << 16, dtype=np.int64)
+    b = rng.integers(np.iinfo(np.int64).min, np.iinfo(np.int64).max, 1 << 16, dtype=np.int64)
+    a[:4] = [(1 << 62) + 12345, -(1 << 63), (1 << 63) - 1, -1]
+    b[:4] = [(1 << 62) - 777, -1, (1 << 63) - 1, 1 << 62]
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    ga, gb = ta.to(dev), tb.to(dev)
+    ops = {"mul": lambda x, y: x * y, "add": lambda x, y: x + y, "sub": lambda x, y: x - y,
+           "shr": lambda x, y: x >> 32, "neg": lambda x, y: -x,
+           "mul64_hi": mm.mul64_hi, "ult": lambda x, y: mm.add64_carry(x, y)[1]}
+    for name, op in ops.items():
+        cpu, card = op(ta, tb), op(ga, gb).cpu()
+        assert torch.equal(cpu, card), f"int64 {name}: the card differs from the CPU"
+    # and both are the exact words, against Python's integers
+    want = [mm.signed(int(x) * int(y)) for x, y in zip(a[:64], b[:64])]
+    assert (ops["mul"](ga, gb)[:64].cpu().tolist()) == want, "int64 * does not wrap mod 2^64"
+    hi = [(mm.unsigned(int(x)) * mm.unsigned(int(y))) >> 64 for x, y in zip(a[:64], b[:64])]
+    assert [mm.unsigned(v) for v in mm.mul64_hi(ga, gb)[:64].cpu().tolist()] == hi
 
 
 def main() -> int:
@@ -500,14 +682,73 @@ def main() -> int:
                         f"plain {p_ms:.4f} ms")
         print(f"phase w22: {list(shape)} " + " | ".join(line) + " | bit-identical")
     print(f"phase w22: launches {w22_path}; inverse(forward(x)) == x")
+
+    # -- 8. the real-key CKKS session at the bench shape --------------------------
+    check_int64_wrap(dev)
+    print("phase session: int64 * + - >> wrap and shift on the card as on the CPU")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # by the earlier phases
+    params = session_params(dev)
+    times: dict = {}
+    sk, rlk, gks = session_keys(params, SESSION_ROTATIONS, times)
+    out = session_run(params, sk, rlk, gks, SESSION_ROTATIONS, times)
+    peak = torch.cuda.max_memory_allocated()
+    # the warm pass: the same session again, every context and block made
+    warm_times: dict = {}
+    warm_keys = session_keys(params, SESSION_ROTATIONS, warm_times)
+    warm = session_run(params, *warm_keys, SESSION_ROTATIONS, warm_times)
+    assert _same(warm_keys, (sk, rlk, gks)), "session keys: warm pass != cold pass"
+    for what in ("cts", "prod", "rots", "dec_prod", "dec_rots", "counts"):
+        assert _same(warm[what], out[what]), f"session {what}: warm pass != cold pass"
+    for what, c in out["counts"].items():
+        assert c == SESSION_LAUNCHES[what], \
+            f"session {what}: B1 launches {c}, expected {SESSION_LAUNCHES[what]}"
+    for name, ms in times.items():
+        print(f"phase session: {name:24s} cold {ms:10.3f} ms, warm {warm_times[name]:10.3f} ms"
+              f" | {smi}")
+    print(f"phase session: peak device memory {(peak - held) / 2**20:.1f} MiB above the "
+          f"{held / 2**20:.1f} MiB the earlier phases hold ({peak / 2**20:.1f} MiB in all) | {smi}")
+    print(f"phase session: B1 launches {out['counts']}")
+    for what, floor in PRECISION_FLOOR.items():
+        got = out["precision"][what]
+        print(f"phase session: min precision {what} {got:.4f} bits (floor {floor:.4f})")
+        assert got >= floor, f"session {what}: {got:.4f} bits below the floor {floor:.4f}"
+    # the FastEvaluator's product equals the fast step on make_context's keys
+    from matrix_fhe_tpu_torch.fast import fckks
+    ctx2 = fckks.make_context(params, rlk, rescale_limbs=2)
+    (c0, c1), (d0, d1) = (ct.value for ct in out["cts"])
+    step = fckks.mul_relin_rescale(ctx2, c0, c1, d0, d1)
+    assert _same(tuple(out["prod"].value), step), "FastEvaluator product != mul_relin_rescale"
+    # the card's keys and outputs equal the same code on the CPU
+    cpu_params = session_params(torch.device("cpu"))
+    cpu_times: dict = {}
+    csk, crlk, cgks = session_keys(cpu_params, CPU_GALOIS, cpu_times)
+    assert _same(sk, csk) and _same(rlk, crlk), "secret / relinearization key: card != CPU"
+    assert _same({g: gks[g] for g in cgks}, cgks), "galois keys: card != CPU"
+    ref = session_run(cpu_params, csk, crlk, {g: _to_cpu(k) for g, k in gks.items()},
+                      SESSION_ROTATIONS, cpu_times)
+    for what in ("cts", "prod", "rots", "dec_prod", "dec_rots"):
+        assert _same(out[what], ref[what]), f"session {what}: card != CPU"
+    for name, ms in cpu_times.items():
+        print(f"phase session: CPU reference {name:24s} {ms:10.3f} ms")
+    print(f"phase session: card == CPU for the secret and relinearization keys, the galois "
+          f"keys of rotations {CPU_GALOIS}, both ciphertexts, the product, the "
+          f"{len(SESSION_ROTATIONS)} rotations and their decodings; FastEvaluator product "
+          f"== fckks.mul_relin_rescale; CPU reference {sum(cpu_times.values()) / 1e3:.1f} s")
     assert "jax" not in sys.modules
 
+    by_path = {d: {"step (phase 4)": launches[d], "session (phase 8, cold pass)":
+                   out["counts"]["multiply"][d] + out["counts"]["rotations"][d]}
+               for d in ("fwd", "bwd")}
     launches.update(chain_fwd=path["chain_fwd"], chain_bwd=path["chain_bwd"], **w22_path)
     kernels = []
     for d in ("fwd", "bwd", "chain_fwd", "chain_bwd", "w22_fwd", "w22_bwd"):
         entry = {"name": f"ntt_{d}", "route": "cuda", "source": SOURCE,
                  "replaces": REPLACES[d], "launches": launches[d], **stats[d],
                  "library_ms": None}
+        if d in by_path:
+            entry["launches_by_path"] = by_path[d]
         assert entry["launches"] > 0 and entry["max_abs_err"] == 0, entry
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))

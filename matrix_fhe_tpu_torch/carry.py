@@ -1,0 +1,115 @@
+"""Carry the JAX package's objects over to the port.
+
+``carry(obj)`` returns the port's counterpart of a JAX-package object,
+reading its arrays through ``np.asarray``: parameters (by their moduli and
+literal), literals and distributions, keys (secret, public,
+relinearization, galois and evaluation keys, in both gadget flavours),
+ciphertexts and plaintexts with their metadata, and dicts, lists and tuples
+of them.  It works by the class name and the field names the two packages
+share, so it imports nothing of the JAX package; any object with those
+fields as numpy arrays is carried the same way.  64-bit words keep their
+bits (uint64 arrays are viewed as int64, the port's word type); int32
+fast-path limbs stay int32.
+
+The fast-path counterpart for a context's key stacks is
+``fast/fckks.py:context_from_arrays``; ``fast/fckks.py:make_context`` builds
+a context from carried keys.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from fractions import Fraction
+
+import numpy as np
+import torch
+
+from matrix_fhe_tpu_torch.ops import samplers as smp
+from matrix_fhe_tpu_torch.rlwe import elements as el
+from matrix_fhe_tpu_torch.rlwe import keys as K
+from matrix_fhe_tpu_torch.rlwe import params as rp
+from matrix_fhe_tpu_torch.schemes.ckks import params as cp
+from matrix_fhe_tpu_torch.utils.device import resolve_device
+
+
+def _words(a, device) -> torch.Tensor:
+    arr = np.array(a, copy=True, order="C")  # writable, as torch needs
+    if arr.dtype == np.uint64:
+        arr = arr.view(np.int64)
+    return torch.from_numpy(arr).to(device)
+
+
+def _literal(cls, obj):
+    """A port dataclass from the same-named fields of ``obj``."""
+    kw = {f.name: getattr(obj, f.name) for f in dataclasses.fields(cls)}
+    for f in ("xe", "xs"):
+        if f in kw:
+            kw[f] = _DIST[type(kw[f]).__name__](kw[f])
+    return cls(**kw)
+
+
+_DIST = {
+    "DiscreteGaussian": lambda o: smp.DiscreteGaussian(sigma=o.sigma, bound=o.bound),
+    "Ternary": lambda o: smp.Ternary(p=o.p, h=o.h),
+}
+
+
+def carry(obj, device="cuda"):
+    """The port's counterpart of ``obj`` (see the module docstring), its
+    tensors on ``device`` (the card unless told otherwise)."""
+    device = resolve_device(device)
+
+    def go(o):
+        return carry(o, device)
+
+    def words(a):
+        return None if a is None else _words(a, device)
+
+    if obj is None:
+        return None
+    if isinstance(obj, dict):
+        return {k: go(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(go(v) for v in obj)
+    name = type(obj).__name__
+    if name in _DIST:
+        return _DIST[name](obj)
+    if name == "ParametersLiteral":
+        return _literal(rp.ParametersLiteral, obj)
+    if name == "CKKSParametersLiteral":
+        return _literal(cp.CKKSParametersLiteral, obj)
+    if name == "CKKSParameters":
+        return cp.new_parameters(cp.CKKSParametersLiteral(
+            logn=obj.n.bit_length() - 1, q=tuple(obj.q), p=tuple(obj.p),
+            log_default_scale=obj.log_default_scale, ring_type=obj.ring_type,
+            xe=go(obj.xe), xs=go(obj.xs)), device)
+    if name == "Parameters":
+        return rp.Parameters(n=obj.n, nth_root=obj.nth_root, q=list(obj.q), p=list(obj.p),
+                             xe=go(obj.xe), xs=go(obj.xs), ring_type=obj.ring_type,
+                             ntt_flag=obj.ntt_flag, default_scale=obj.default_scale,
+                             device=device)
+    if name == "MetaData":
+        return el.MetaData(scale=Fraction(obj.scale),
+                           log_dimensions=tuple(obj.log_dimensions),
+                           is_batched=obj.is_batched, is_ntt=obj.is_ntt,
+                           is_montgomery=obj.is_montgomery)
+    if name == "Ciphertext":
+        return el.Ciphertext(value=tuple(words(v) for v in obj.value),
+                             metadata=go(obj.metadata))
+    if name == "Plaintext":
+        return el.Plaintext(value=words(obj.value), metadata=go(obj.metadata))
+    if name == "QPPoly":
+        return K.QPPoly(q=words(obj.q), p=words(obj.p))
+    if name == "SecretKey":
+        return K.SecretKey(value=go(obj.value))
+    if name == "PublicKey":
+        return K.PublicKey(value=tuple(go(v) for v in obj.value))
+    if name == "GadgetCiphertext":
+        return K.GadgetCiphertext(q=words(obj.q), p=words(obj.p), base_two=int(obj.base_two))
+    if name == "EvaluationKey":
+        return K.EvaluationKey(gadget=go(obj.gadget))
+    if name == "RelinearizationKey":
+        return K.RelinearizationKey(gadget=go(obj.gadget))
+    if name == "GaloisKey":
+        return K.GaloisKey(gadget=go(obj.gadget), gal_el=int(obj.gal_el))
+    raise TypeError(f"no port counterpart for {name}")

@@ -1,5 +1,6 @@
-"""The int32 fast path over <2^23 moduli: ring, RNS tools and the CKKS
-multiply-relinearize-rescale step, ported from ``matrix_fhe_tpu.fast``.
+"""The int32 fast path over <2^23 moduli: ring, RNS tools, the CKKS
+multiply-relinearize-rescale step and the evaluator over it, ported from
+``matrix_fhe_tpu.fast``.
 
 Residues are int32 tensors [..., L, N], canonical in [0, q) at op
 boundaries.  Between boundaries the arithmetic runs in int64, where every

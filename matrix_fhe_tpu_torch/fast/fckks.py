@@ -11,10 +11,11 @@ many ~22-bit primes, rescaling by pairs of primes, where
   * rescale is DivRoundByLastModulusManyNTT with nb = 2 (ring/scaling.go:130).
 
 Every output equals the JAX package's bit for bit on the same context and
-operands.  Keys are not generated here: ``context_from_arrays`` takes the
-plain-domain int32 key stacks of a JAX context as numpy arrays, and
-``make_synthetic_context`` draws uniform keys and operands from a numpy seed
-exactly as the JAX function of that name does.
+operands.  A context comes from the port's own keys (``make_context``, over
+``rlwe/keys.py``), from the plain-domain int32 key stacks of a JAX context
+as numpy arrays (``context_from_arrays``), or from uniform keys and operands
+drawn from a numpy seed exactly as the JAX function of that name does
+(``make_synthetic_context``).
 """
 
 from __future__ import annotations
@@ -132,6 +133,36 @@ def context_from_arrays(n: int, Q, P, rlk_q, rlk_p, gk_q=None, gk_p=None,
         gq = put(gk_q, (G, D, 2, len(Q), n), "gk_q")
         gp = put(gk_p, (G, D, 2, len(P), n), "gk_p")
     return _new_context(n, Q, P, rq, rp, gq, gp, gal_els, rescale_limbs, device)
+
+
+def _convert_gadget(params, gadget) -> tuple[torch.Tensor, torch.Tensor]:
+    """A u64 gadget ciphertext (NTT + Montgomery form) as plain-domain int32
+    stacks: IMForm on its own ring, then a cast (residues < 2^23)."""
+    gq = params.ring_q.imform(gadget.q).to(torch.int32)
+    gp = params.ring_p.imform(gadget.p).to(torch.int32)
+    return gq, gp
+
+
+def make_context(params, rlk, gks=None, rescale_limbs: int = 2) -> FastCKKSContext:
+    """Context from u64-path parameters and keys (``rlwe.Parameters``, a
+    ``RelinearizationKey`` and optional galois keys {gal_el: GaloisKey}), on
+    the parameters' device.  Each key is taken out of the Montgomery domain
+    and cast to int32 once (``fast/fckks.py:make_context`` of the JAX
+    package)."""
+    Q, P = list(params.q), list(params.p)
+    for q in Q + P:
+        if q >= fring.MAX_FAST_MODULUS:
+            raise ValueError(f"modulus {q} too large for the fast path")
+    rlk_q, rlk_p = _convert_gadget(params, rlk.gadget)
+    gal_els: tuple[int, ...] = ()
+    gk_q = gk_p = None
+    if gks:
+        gal_els = tuple(sorted(gks))
+        conv = [_convert_gadget(params, gks[g].gadget) for g in gal_els]
+        gk_q = torch.stack([c[0] for c in conv])
+        gk_p = torch.stack([c[1] for c in conv])
+    return _new_context(params.n, Q, P, rlk_q, rlk_p, gk_q, gk_p, gal_els,
+                        rescale_limbs, params.device)
 
 
 def make_synthetic_context(logn: int, num_q: int, num_p: int,

@@ -115,6 +115,13 @@ class FastRing:
     def neg(self, p1):
         return torch.where(p1 == 0, p1, self._q() - p1)
 
+    # no Montgomery domain: the u64 ring's forms are the identity here
+    def mform(self, p1):
+        return p1
+
+    def imform(self, p1):
+        return p1
+
     def reduce(self, p1):
         return reduce_once(p1, self._q())
 

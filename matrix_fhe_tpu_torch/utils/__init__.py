@@ -1,2 +1,3 @@
-"""Host-side helpers: number theory (pure Python), copied from
-``matrix_fhe_tpu.utils``, and the device policy of the constructors."""
+"""Host-side helpers: number theory (pure Python) and Decimal
+transcendentals, copied from ``matrix_fhe_tpu.utils``, and the device policy
+of the constructors."""

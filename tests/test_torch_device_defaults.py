@@ -6,8 +6,11 @@ card.  Decided inside the test, not at import."""
 import pytest
 import torch
 
+from matrix_fhe_tpu_torch import carry, rlwe
 from matrix_fhe_tpu_torch.fast import fckks, fring, frns
-from matrix_fhe_tpu_torch.ops import ntt_cuda, ntt_w22
+from matrix_fhe_tpu_torch.ops import ntt_cuda, ntt_w22, rings, rns_tools
+from matrix_fhe_tpu_torch.rlwe import params as rparams
+from matrix_fhe_tpu_torch.schemes import ckks
 
 N = 1 << 5
 Q = ntt_cuda.find_v2_primes(N, 4)
@@ -30,6 +33,19 @@ CONSTRUCTORS = {
     "fckks.context_from_arrays": lambda: fckks.context_from_arrays(
         N, Q, P, _zeros(1, 2, 2, N), _zeros(1, 2, 2, N)).rlk_q,
     "fckks.make_synthetic_context": lambda: fckks.make_synthetic_context(5, 2, 2)[1][0],
+    "rings.new_ring": lambda: rings.new_ring(N, Q).moduli,
+    "rns_tools.gen_modup_constants": lambda: rns_tools.gen_modup_constants(Q, P).src_q_f64,
+    "rns_tools.gen_moddown_constants":
+        lambda: rns_tools.gen_moddown_constants(Q, P).moddown_const,
+    "rns_tools.gen_decomposer": lambda: rns_tools.gen_decomposer(Q, P).mucs[0].src_q_f64,
+    "rlwe.new_parameters": lambda: rlwe.new_parameters(
+        rlwe.ParametersLiteral(logn=5, q=tuple(Q), p=tuple(P))).ring_q.moduli,
+    "rlwe.Parameters": lambda: rlwe.Parameters(
+        n=N, nth_root=2 * N, q=Q, p=P, xe=rparams.DEFAULT_XE, xs=rparams.DEFAULT_XS,
+        ring_type=rings.STANDARD, ntt_flag=True, default_scale=1.0).ring_p.moduli,
+    "ckks.new_parameters": lambda: ckks.new_parameters(
+        ckks.CKKSParametersLiteral(logn=5, q=tuple(Q), p=tuple(P))).ring_q.moduli,
+    "carry.carry": lambda: carry.carry(_zeros(2, N).astype("uint64")),
 }
 
 
