@@ -68,10 +68,41 @@ Then the setup path and a real CKKS session, the second main path:
    keys of rotations 1 and 2, both ciphertexts, the product, the rotations
    (from the card's galois keys) and the decoded values, bit for bit.
 
+Then bootstrapping, the third main path:
+
+9. one bootstrap session at logN = 14 through the user's entry points, on
+   fboot.FAST_N14 (17 + 3 primes < 2^23, 8192 slots, an ephemeral sparse
+   secret of weight 32, so the encapsulation keys run): keygen (the secret
+   key, then gen_evaluation_keys in its two parts: the draws of the
+   relinearization key, the 31 galois keys, the sparse secret and the two
+   encapsulation keys on a CPU generator, and the deterministic part),
+   make_fast_bootstrapper (the 6 DFT matrices encoded and converted to
+   int32), encode + encrypt of 8192 complex slots
+   (tools/port_precision_floor.py:boot_vector) at the residual level, bootstrap,
+   evaluate(iterations=2) (META-BTS), decrypt + decode; a cold pass, then a
+   warm pass with the same seeds that must give the same keys, outputs and
+   B1 launches, and 3 more warm bootstraps (median).  Checks and prints:
+   the output's level and scale; B1's launches for one bootstrap and for
+   evaluate (counts zeroed before, read after); the session's peak device
+   memory; the decoded precision of both (mean and min bits; no floor: the
+   JAX package decodes this preset to noise too); the stage-by-stage
+   decryption (after ScaleDown, ModUp, CoeffsToSlots, EvalMod and
+   SlotsToCoeffs, each against what that stage computes on its actual input
+   and against what the bootstrap should hold there), whose composition
+   must equal bootstrap; the DFT round trip at input scales 2^15 and 2^34 and
+   EvalMod on the bootstrap's keys, each against the JAX package's precision
+   on the CPU (tools/port_precision_floor.py), the 2^34 round trip and
+   EvalMod held to it less 1 bit (mean); B1 at every shape the bootstrap
+   gives it, bit-identical to the plain version, with its cluster size and
+   device time; and the same bootstrap and evaluate on the CPU (the card's
+   keys copied over, the plain NTT) equal to the card's limb for limb and in
+   the decoded values.
+
 Prints a JSON line of per-kernel results, one entry per kernel entry point:
 launches on its path (phase 4 for ntt_fwd/ntt_bwd, 6 for the chain, 7 for
 w22; counts zeroed just before each run and read just after; ntt_fwd/ntt_bwd
-also give launches_by_path, phase 4's and phase 8's cold pass apart), max |kernel - plain|,
+also give launches_by_path: phase 4's, phase 8's cold pass, and phase 9's
+bootstrap and evaluate apart), max |kernel - plain| (phases 3 and 9 for B1),
 the kernel's and plain version's times (phase 3's shapes summed, one launch
 each, for ntt_fwd/ntt_bwd; the path's shape for the others), and the bound:
 the larger of the bytes over the card's memory rate and the butterflies'
@@ -142,6 +173,17 @@ PRECISION_FLOOR = {"product": 30.9659 - 1, "rotations": 25.1012 - 1}
 SESSION_LAUNCHES = {
     "multiply": {"fwd": 3 + 4, "bwd": 2 + 4},
     "rotations": {"fwd": 2 + len(SESSION_ROTATIONS), "bwd": 1 + len(SESSION_ROTATIONS)}}
+# Phase 9, bootstrapping at FAST_N14: warm repeats of one bootstrap, and the
+# JAX package's decoded precision (mean, min bits over 8192 slots) of the
+# bootstrap's circuits on the same parameters (tools/port_precision_floor.py
+# bootstrap, on an 8-core CPU, JAX's own keys).  The round trip at the default
+# scale 2^15 decodes to noise there too and is printed beside it; the floor
+# holds the mean of the others to JAX's less 1 bit.
+BOOT_REPEATS = 3
+BOOT_JAX_PRECISION = {"dft round trip 2^15": (-9.3225, -11.5838),
+                      "dft round trip 2^34": (9.6485, 7.3162),
+                      "eval_mod": (0.0826, -6.3947)}
+BOOT_FLOORS = ("dft round trip 2^34", "eval_mod")
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_BUTTERFLY = 7
 INT32_OPS_PER_CLOCK_PER_SM = 128
@@ -356,6 +398,13 @@ def _to_cpu(gk):
         g, q=g.q.cpu(), p=None if g.p is None else g.p.cpu()))
 
 
+def card_label() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
 def check_int64_wrap(dev) -> None:
     """The u64 path holds 64-bit words in int64 and needs * + - to wrap mod
     2^64 and >> to be arithmetic on the card as on the CPU."""
@@ -380,6 +429,262 @@ def check_int64_wrap(dev) -> None:
     assert [mm.unsigned(v) for v in mm.mul64_hi(ga, gb)[:64].cpu().tolist()] == hi
 
 
+# -- phase 9: bootstrapping at logN = 14 ----------------------------------------
+
+def _move(obj, device):
+    """``obj`` (tensors in dataclasses, dicts, lists and tuples) on ``device``."""
+    import dataclasses
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
+    if isinstance(obj, dict):
+        return {k: _move(v, device) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_move(v, device) for v in obj)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{f.name: _move(getattr(obj, f.name), device)
+                                           for f in dataclasses.fields(obj) if f.init})
+    return obj
+
+
+def boot_decode(bts, sk, ct) -> np.ndarray:
+    """Decrypt a fast-path ciphertext of the bootstrapper's parameters and
+    decode its slots."""
+    from matrix_fhe_tpu_torch.fast import feval
+    from matrix_fhe_tpu_torch.rlwe import decryptor
+    return bts.enc.decode(decryptor.decrypt(bts.p.params, sk, feval.ct_to_u64(ct)))
+
+
+def boot_keys(p, times: dict):
+    """The secret key, then every evaluation key of the bootstrap (the
+    relinearization key, the galois keys, the sparse secret and the two
+    encapsulation keys): ``gen_evaluation_keys`` in its two parts, the draws
+    on a CPU generator and the deterministic part, timed apart."""
+    from matrix_fhe_tpu_torch.circuits.ckks import bootstrapping as btp
+    from matrix_fhe_tpu_torch.rlwe import keys as K
+    dev = p.params.device
+    sk = _timed(times, "keygen secret", dev, lambda: K.gen_secret_key(_gen(101), p.params))
+    samples = _timed(times, f"keygen draws ({len(p.galois_elements())} galois + 3)", dev,
+                     lambda: btp.sample_evaluation_keys(_gen(102), p))
+    evk = _timed(times, "keygen deterministic part", dev,
+                 lambda: btp.evaluation_keys_from_samples(p, sk, samples))
+    return sk, evk
+
+
+def _counted(dev, fn):
+    """fn() and B1's launches in it (counts zeroed just before, read just after)."""
+    from matrix_fhe_tpu_torch.ops import ntt_cuda
+    _sync(dev)
+    ntt_cuda.fwd_launches = ntt_cuda.bwd_launches = 0
+    out = fn()
+    return out, {"fwd": ntt_cuda.fwd_launches, "bwd": ntt_cuda.bwd_launches}
+
+
+def boot_session(p, sk, evk, times: dict, repeats: int = 0) -> dict:
+    """Build the bootstrapper, encrypt the input at the residual level,
+    bootstrap it (``repeats`` more times after, timed apart), run META-BTS
+    with two iterations, decrypt and decode both."""
+    from matrix_fhe_tpu_torch.fast import fboot, feval
+    from matrix_fhe_tpu_torch.rlwe import encryptor
+    from tools.port_precision_floor import boot_vector
+    params = p.params
+    dev = params.device
+    bts = _timed(times, "make_fast_bootstrapper", dev, lambda: fboot.make_fast_bootstrapper(p, evk))
+    v = boot_vector(params.max_slots)
+    ct = _timed(times, "encode + encrypt", dev, lambda: feval.ct_to_fast(encryptor.encrypt(
+        _gen(103), params, sk, bts.enc.encode(v, level=p.residual_level))))
+    out, counts = _counted(dev, lambda: _timed(times, "bootstrap", dev, lambda: bts.bootstrap(ct)))
+    reps = []
+    for _ in range(repeats):
+        _timed(times, "bootstrap again", dev, lambda: bts.bootstrap(ct))
+        reps.append(times["bootstrap again"])
+    meta, meta_counts = _counted(dev, lambda: _timed(
+        times, "evaluate(iterations=2)", dev, lambda: bts.evaluate(ct, iterations=2)))
+
+    dec = _timed(times, "decrypt + decode", dev, lambda: boot_decode(bts, sk, out))
+    return {"bts": bts, "v": v, "ct": ct, "boot": out, "meta": meta, "dec": dec,
+            "dec_meta": boot_decode(bts, sk, meta), "counts": {"bootstrap": counts, "evaluate": meta_counts},
+            "repeats": reps}
+
+
+def _plain_coeffs(params, sk, ct) -> list[int]:
+    """The centered integer coefficients of ct's decryption."""
+    from matrix_fhe_tpu_torch.fast import feval
+    from matrix_fhe_tpu_torch.rlwe import decryptor
+    from matrix_fhe_tpu_torch.schemes.ckks.encoder import crt_reconstruct_centered
+    pt = decryptor.decrypt(params, sk, feval.ct_to_u64(ct))
+    limbs = params.ring_q.at_level(pt.level).intt(pt.value).cpu().numpy()
+    return crt_reconstruct_centered(limbs, params.q[: pt.level + 1])
+
+
+def _centered_mod(c: int, m: int) -> int:
+    r = c % m
+    return r - m if r > m // 2 else r
+
+
+def boot_stages(bts, sk, ct, v):
+    """Decrypt and decode after each stage of the bootstrap (ScaleDown,
+    ModUp, CoeffsToSlots, EvalMod, SlotsToCoeffs), as ``bootstrap`` runs
+    them.  Each stage's result is held against two references:
+      * ``own``: what the stage computes, exactly, on the values its input
+        decrypts to (ModUp: the input's plaintext plus multiples of q0
+        times the ModUp scale factor; CoeffsToSlots: the input's plaintext
+        coefficients, bit-reversed, times the matrix scaling over the
+        scale; EvalMod: the real part of its input with those multiples
+        removed, so the imaginary part CoeffsToSlots leaves counts as
+        EvalMod's error too; SlotsToCoeffs: the special FFT of its input's
+        slots, re + i im, times its scaling);
+      * ``total``: what the bootstrap should hold at that point (from the
+        values v and from ScaleDown's plaintext).
+    Returns (rows of (stage, level, log2 scale, own stats, total stats,
+    a note), the final ciphertext)."""
+    from fractions import Fraction
+
+    from matrix_fhe_tpu_torch.schemes import ckks
+    from matrix_fhe_tpu_torch.schemes.ckks.encoder import _bit_reverse_perm
+    params = bts.p.params
+    enc = getattr(bts.enc, "_u64", bts.enc)  # the u64 encoder under a FastEncoder
+    half = params.max_slots
+    br = _bit_reverse_perm(half)
+    c2s_sc = bts.c2s_matrix.literal.scaling
+    s2c_sc = bts.s2c_matrix.literal.scaling
+
+    def decode(c):
+        return boot_decode(bts, sk, c)
+
+    def slots_of(coeffs, scale):
+        """Decode of integer coefficients at ``scale``."""
+        f = np.array([float(Fraction(c) / scale) for c in coeffs])
+        return enc.special_fft(f[:half] + 1j * f[half:])
+
+    def stats(want, got):
+        s = ckks.precision_stats(want, got)
+        return s.avg_precision, s.min_precision
+
+    def rms_bits(x):
+        return float(np.log2(np.sqrt(np.mean(np.abs(x) ** 2)) + 1e-300))
+
+    rows = []
+    ct0 = bts.scale_down(ct)
+    got0 = decode(ct0)
+    rows.append(("ScaleDown", ct0, stats(v, got0), stats(v, got0), ""))
+    c0 = _plain_coeffs(params, sk, ct0)
+    msg = np.array([float(Fraction(c) / ct0.scale) for c in c0])  # the message's coefficients
+    if bts.evk_dense_to_sparse is not None:  # now under the sparse secret, until ModUp
+        ct0 = bts.ev.apply_evaluation_key(ct0, bts.evk_dense_to_sparse)
+
+    ct1 = bts.mod_up(ct0)
+    factor = ct1.scale / ct0.scale
+    assert factor.denominator == 1, factor
+    m = int(factor) * params.q[0]
+    c1 = _plain_coeffs(params, sk, ct1)
+    r1 = [_centered_mod(c, m) for c in c1]
+    overflow = max(abs((c - r) // m) for c, r in zip(c1, r1))
+    got1 = slots_of(r1, ct1.scale)
+    rows.append(("ModUp", ct1, stats(got0, got1), stats(v, got1),
+                 f"plaintext = message + {m} I, max |I| = {overflow}"))
+
+    re, im = bts.coeffs_to_slots(ct1)
+    g_re, g_im = decode(re), decode(im)
+    full = np.array([float(Fraction(c) / ct1.scale) for c in c1]) * c2s_sc
+    want_re, want_im = full[:half][br], full[half:][br]
+    got_c2s = np.concatenate([g_re, g_im])
+    own = stats(np.concatenate([want_re, want_im]), got_c2s)
+    msg_c2s = np.concatenate([msg[:half][br], msg[half:][br]]) * c2s_sc
+    err = got_c2s - np.concatenate([want_re, want_im])
+    rows.append(("CoeffsToSlots", re, own, own,
+                 f"message rms 2^{rms_bits(msg_c2s):.2f}, error rms 2^{rms_bits(err):.2f} "
+                 f"(slots of both parts)"))
+
+    e_re, e_im = bts.eval_mod(re), bts.eval_mod(im)
+    g2 = np.concatenate([decode(e_re), decode(e_im)])
+    # EvalMod of CoeffsToSlots' actual output: the multiples of q0 removed
+    x = np.real(got_c2s) / c2s_sc * float(ct1.scale)
+    ideal = np.array([float(_centered_mod(int(round(t)), m)) for t in x]) / float(ct1.scale)
+    total = np.concatenate([msg[:half][br], msg[half:][br]]) / s2c_sc
+    rows.append(("EvalMod", e_re, stats(ideal / s2c_sc, g2), stats(total, g2), ""))
+
+    out = bts.slots_to_coeffs(e_re, e_im)
+    got = decode(out)
+    ideal_s2c = s2c_sc * enc.special_fft((g2[:half] + 1j * g2[half:])[br])
+    rows.append(("SlotsToCoeffs", out, stats(ideal_s2c, got), stats(v, got), ""))
+    return rows, out
+
+
+def boot_circuits(bts, sk) -> dict:
+    """The two circuits of the bootstrap held to the JAX package's precision
+    (tools/port_precision_floor.py bootstrap): the DFT round trip at each
+    input scale and EvalMod, on the bootstrap's keys."""
+    from matrix_fhe_tpu_torch.fast import feval
+    from matrix_fhe_tpu_torch.rlwe import encryptor
+    from matrix_fhe_tpu_torch.schemes import ckks
+    from tools.port_precision_floor import (DFT_LOG_SCALES, boot_vector, mod1_input,
+                                            mod1_prepare)
+    params = bts.p.params
+
+    def decode(c):
+        return boot_decode(bts, sk, c)
+
+    def encrypt(values, level, scale, site):
+        return feval.ct_to_fast(encryptor.encrypt(
+            _gen(site), params, sk, bts.enc.encode(values, level=level, scale=scale)))
+
+    out = {}
+    v = boot_vector(params.max_slots)
+    scaling = bts.c2s_matrix.literal.scaling * bts.s2c_matrix.literal.scaling
+    for log_scale in DFT_LOG_SCALES:
+        ct = encrypt(v, params.max_level, 1 << log_scale, 104)
+        res = bts.slots_to_coeffs(*bts.coeffs_to_slots(ct))
+        out[f"dft round trip 2^{log_scale}"] = ckks.precision_stats(v, decode(res) / scaling)
+    m1p = bts.mod1_params
+    values, want = mod1_input(m1p, params.max_slots)
+    ct = mod1_prepare(bts.ev, encrypt(values, bts.p.mod1_lit.level_q + 1, None, 105), m1p,
+                      params.q[0])
+    out["eval_mod"] = ckks.precision_stats(want, np.real(decode(bts.mod1_eval.evaluate(ct))))
+    return out
+
+
+def ntt_shapes(fn):
+    """fn() with every B1 call recorded: {(direction, shape, tables' address):
+    tables}, one entry for each shape and set of moduli."""
+    from matrix_fhe_tpu_torch.ops import ntt_cuda
+    seen = {}
+    fwd, bwd = ntt_cuda.ntt_fwd, ntt_cuda.ntt_bwd
+
+    def recording(direction, kernel):
+        def call(x, tabs):
+            seen.setdefault((direction, tuple(x.shape), tabs.moduli.data_ptr()), tabs)
+            return kernel(x, tabs)
+        return call
+
+    ntt_cuda.ntt_fwd, ntt_cuda.ntt_bwd = recording("fwd", fwd), recording("bwd", bwd)
+    try:
+        fn()
+    finally:
+        ntt_cuda.ntt_fwd, ntt_cuda.ntt_bwd = fwd, bwd
+    return seen
+
+
+def check_ntt_shapes(shapes: dict, dev, rng) -> list:
+    """B1 against its plain version at each recorded shape (the moduli of
+    its call, random residues), and its time there: one row a shape."""
+    from matrix_fhe_tpu_torch.ops import ntt_cuda, ntt_plain
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = []
+    for (d, shape, _), tabs in sorted(shapes.items(), key=lambda kv: (kv[0][1][-2], kv[0])):
+        mods = tabs.moduli.tolist()
+        x_cpu = _operands(rng, shape, mods)
+        kern = ntt_cuda.ntt_fwd if d == "fwd" else ntt_cuda.ntt_bwd
+        plain = ntt_plain.ntt_fwd_plain if d == "fwd" else ntt_plain.ntt_bwd_plain
+        got = kern(x_cpu.to(dev), tabs)
+        want = plain(x_cpu, ntt_cuda.build_tables(shape[-1], mods, "cpu"))
+        err = int((got.cpu().long() - want.long()).abs().max())
+        rows_n = int(np.prod(shape[:-1]))
+        rows.append((d, shape, ntt_cuda.geometry(rows_n, shape[-1], 1, sms), err,
+                     _device_ms(lambda: kern(got, tabs))))
+    return rows
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -389,10 +694,8 @@ def main() -> int:
     from matrix_fhe_tpu_torch.ops import ntt_cuda, ntt_plain, ntt_w22
 
     # -- 1. device ------------------------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    print(smi.splitlines()[0])
+    smi = card_label()
+    print(smi)
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}")
@@ -736,10 +1039,108 @@ def main() -> int:
           f"keys of rotations {CPU_GALOIS}, both ciphertexts, the product, the "
           f"{len(SESSION_ROTATIONS)} rotations and their decodings; FastEvaluator product "
           f"== fckks.mul_relin_rescale; CPU reference {sum(cpu_times.values()) / 1e3:.1f} s")
+
+    # -- 9. bootstrapping at logN = 14 ----------------------------------------------
+    from matrix_fhe_tpu_torch.circuits.ckks import bootstrapping as btp
+    from matrix_fhe_tpu_torch.fast import fboot
+    from matrix_fhe_tpu_torch.schemes import ckks
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    bp = btp.Parameters(fboot.FAST_N14, device=dev)
+    bparams = bp.params
+    print(f"phase boot: FAST_N14, logN {bparams.log_n}, {len(bparams.q)} + {len(bparams.p)} "
+          f"primes < 2^23, {bparams.max_slots} slots, residual level {bp.residual_level}, "
+          f"{len(bp.galois_elements())} galois keys, sparse secret weight "
+          f"{bp.lit.ephemeral_secret_weight}")
+    btimes: dict = {}
+    bsk, bevk = boot_keys(bp, btimes)
+    boot = boot_session(bp, bsk, bevk, btimes)
+    bpeak = torch.cuda.max_memory_allocated()
+    bwarm_times: dict = {}
+    wkeys = boot_keys(bp, bwarm_times)
+    bwarm = boot_session(bp, *wkeys, bwarm_times, repeats=BOOT_REPEATS)
+    assert _same(wkeys, (bsk, bevk)), "bootstrap keys: warm pass != cold pass"
+    for what in ("ct", "boot", "meta", "dec", "dec_meta", "counts"):
+        assert _same(bwarm[what], boot[what]), f"bootstrap {what}: warm pass != cold pass"
+    for what, c in boot["counts"].items():
+        assert c["fwd"] > 0 and c["bwd"] > 0, f"{what}: B1 not launched ({c})"
+    out_b, meta = boot["boot"], boot["meta"]
+    assert out_b.level == bp.residual_level and out_b.scale == bparams.default_scale, \
+        (out_b.level, out_b.scale)
+    assert meta.level == bp.residual_level - 1 and meta.scale == bparams.default_scale
+    for name, ms in btimes.items():
+        warm_ms = bwarm_times[name]
+        print(f"phase boot: {name:34s} cold {ms:10.3f} ms, warm {warm_ms:10.3f} ms | {smi}")
+    print(f"phase boot: bootstrap, warm, {BOOT_REPEATS} more: "
+          f"{', '.join(f'{t:.3f}' for t in bwarm['repeats'])} ms, median "
+          f"{statistics.median(bwarm['repeats']):.3f} ms | {smi}")
+    print(f"phase boot: peak device memory {(bpeak - held) / 2**20:.1f} MiB above the "
+          f"{held / 2**20:.1f} MiB the earlier phases hold | {smi}")
+    print(f"phase boot: B1 launches {boot['counts']} (cold pass == warm pass)")
+    for what, dec in (("bootstrap", boot["dec"]), ("evaluate(iterations=2)", boot["dec_meta"])):
+        st = ckks.precision_stats(boot["v"], dec)
+        print(f"phase boot: decoded precision of {what}: mean {st.avg_precision:.4f} bits, "
+              f"min {st.min_precision:.4f} bits over {len(dec)} slots | {smi}")
+
+    # stage by stage: the bootstrap's own stages, decrypted after each
+    rows, staged = boot_stages(boot["bts"], bsk, boot["ct"], boot["v"])
+    assert _same(staged, out_b), "the stages composed != bootstrap"
+    for stage, ct_s, own, total, note in rows:
+        print(f"phase boot: stage {stage:13s} level {ct_s.level:2d} scale 2^"
+              f"{np.log2(float(ct_s.scale)):6.2f} | own mean {own[0]:8.4f} min {own[1]:8.4f} "
+              f"bits | total mean {total[0]:8.4f} min {total[1]:8.4f} bits | {note}")
+
+    # the circuits held to the JAX package's precision
+    circ = boot_circuits(boot["bts"], bsk)
+    for name, st in circ.items():
+        jax_mean, jax_min = BOOT_JAX_PRECISION[name]
+        line = (f"phase boot: {name}: mean {st.avg_precision:.4f} bits, min "
+                f"{st.min_precision:.4f} bits (JAX package on the CPU: mean {jax_mean:.4f}, "
+                f"min {jax_min:.4f})")
+        if name in BOOT_FLOORS:
+            line += f"; floor on the mean {jax_mean - 1:.4f}"
+        print(line + f" | {smi}")
+        if name in BOOT_FLOORS:
+            assert st.avg_precision >= jax_mean - 1, f"{name}: below the floor"
+
+    # every shape the bootstrap gives B1: kernel == plain, and its time there
+    shapes = ntt_shapes(lambda: boot["bts"].evaluate(boot["ct"], iterations=2))
+    shape_rows = check_ntt_shapes(shapes, dev, rng)
+    for d, shape, c, err, ms in shape_rows:
+        assert err == 0, f"B1 {d} {shape}: kernel != plain ({err})"
+        stats[d]["max_abs_err"] = max(stats[d]["max_abs_err"], err)
+    print(f"phase boot: B1 at the {len(shape_rows)} shapes (direction, batch, limbs; each "
+          f"set of moduli apart) of bootstrap and evaluate(iterations=2): kernel == plain "
+          f"at every one")
+    for d, shape, c, err, ms in shape_rows:
+        print(f"phase boot:   {d} {str(list(shape)):17s} C={c} device time queued {ms:.4f} ms")
+
+    # the same bootstrap on the CPU, with the card's keys, through the plain NTT
+    cpu_bp = btp.Parameters(fboot.FAST_N14, device="cpu")
+    cpu_times: dict = {}
+    cpu_bts = _timed(cpu_times, "make_fast_bootstrapper", torch.device("cpu"),
+                     lambda: fboot.make_fast_bootstrapper(cpu_bp, _move(bevk, "cpu")))
+    cpu_ct = _move(boot["ct"], "cpu")
+    cpu_out = _timed(cpu_times, "bootstrap", torch.device("cpu"), lambda: cpu_bts.bootstrap(cpu_ct))
+    cpu_meta = _timed(cpu_times, "evaluate(iterations=2)", torch.device("cpu"),
+                      lambda: cpu_bts.evaluate(cpu_ct, iterations=2))
+    assert _same(out_b, cpu_out), "bootstrap: card != CPU"
+    assert _same(meta, cpu_meta), "evaluate(iterations=2): card != CPU"
+    cpu_sk = _move(bsk, "cpu")
+    for what, c, want in (("bootstrap", cpu_out, boot["dec"]), ("evaluate", cpu_meta,
+                                                                boot["dec_meta"])):
+        assert np.array_equal(boot_decode(cpu_bts, cpu_sk, c), want), \
+            f"{what}: decoded values, card != CPU"
+    print(f"phase boot: card == CPU (the card's keys, the plain NTT) for bootstrap and "
+          f"evaluate(iterations=2), limb for limb and decoded; CPU reference "
+          + ", ".join(f"{k} {v / 1e3:.1f} s" for k, v in cpu_times.items()))
     assert "jax" not in sys.modules
 
     by_path = {d: {"step (phase 4)": launches[d], "session (phase 8, cold pass)":
-                   out["counts"]["multiply"][d] + out["counts"]["rotations"][d]}
+                   out["counts"]["multiply"][d] + out["counts"]["rotations"][d],
+                   "bootstrap (phase 9)": boot["counts"]["bootstrap"][d],
+                   "evaluate(iterations=2) (phase 9)": boot["counts"]["evaluate"][d]}
                for d in ("fwd", "bwd")}
     launches.update(chain_fwd=path["chain_fwd"], chain_bwd=path["chain_bwd"], **w22_path)
     kernels = []
@@ -752,7 +1153,7 @@ def main() -> int:
         assert entry["launches"] > 0 and entry["max_abs_err"] == 0, entry
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
-    print(smi.splitlines()[0])
+    print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -4,8 +4,9 @@
 reading its arrays through ``np.asarray``: parameters (by their moduli and
 literal), literals and distributions, keys (secret, public,
 relinearization, galois and evaluation keys, in both gadget flavours),
-ciphertexts and plaintexts with their metadata, and dicts, lists and tuples
-of them.  It works by the class name and the field names the two packages
+ciphertexts and plaintexts with their metadata, the bootstrapping
+parameters, literal and evaluation keys (the encapsulation keys included),
+and dicts, lists and tuples of them.  It works by the class name and the field names the two packages
 share, so it imports nothing of the JAX package; any object with those
 fields as numpy arrays is carried the same way.  64-bit words keep their
 bits (uint64 arrays are viewed as int64, the port's word type); int32
@@ -24,6 +25,7 @@ from fractions import Fraction
 import numpy as np
 import torch
 
+from matrix_fhe_tpu_torch.circuits.ckks import bootstrapping as btp
 from matrix_fhe_tpu_torch.ops import samplers as smp
 from matrix_fhe_tpu_torch.rlwe import elements as el
 from matrix_fhe_tpu_torch.rlwe import keys as K
@@ -74,6 +76,16 @@ def carry(obj, device="cuda"):
     name = type(obj).__name__
     if name in _DIST:
         return _DIST[name](obj)
+    # bootstrapping's literal and parameters share their class names with
+    # rlwe's: they are told apart by a field of their own
+    if name == "ParametersLiteral" and hasattr(obj, "residual_log_q"):
+        return _literal(btp.ParametersLiteral, obj)
+    if name == "Parameters" and hasattr(obj, "c2s_lit"):
+        return btp.Parameters(go(obj.lit), device)
+    if name == "EvaluationKeys":
+        return btp.EvaluationKeys(
+            rlk=go(obj.rlk), gks=go(obj.gks), evk_dense_to_sparse=go(obj.evk_dense_to_sparse),
+            evk_sparse_to_dense=go(obj.evk_sparse_to_dense))
     if name == "ParametersLiteral":
         return _literal(rp.ParametersLiteral, obj)
     if name == "CKKSParametersLiteral":

@@ -12,9 +12,8 @@ rescale, relinearization, automorphisms, trace and mod-raise are
 overridden.  Each override equals the u64 evaluator's output bit for bit on
 the same moduli and keys.
 
-``evaluate_lintrans`` needs ``fast/flintrans.py`` (ROADMAP A6): it raises,
-and does not fall back to the u64 method, which would run 64-bit word
-arithmetic on int32 limbs.
+``evaluate_lintrans`` runs ``fast/flintrans.py`` on the int32 limbs, and
+never the u64 method, which would run 64-bit word arithmetic on them.
 """
 
 from __future__ import annotations
@@ -24,7 +23,7 @@ from fractions import Fraction
 import numpy as np
 import torch
 
-from matrix_fhe_tpu_torch.fast import fckks, frns
+from matrix_fhe_tpu_torch.fast import fckks, flintrans, frns
 from matrix_fhe_tpu_torch.fast.fckks import FastCKKSContext
 from matrix_fhe_tpu_torch.rlwe.elements import Ciphertext, Plaintext
 from matrix_fhe_tpu_torch.schemes import ckks
@@ -74,6 +73,9 @@ class FastEvaluator(ckks.Evaluator):
             raise ValueError("fast context must be built at the top level")
         self._ctx_cache: dict[int, FastCKKSContext] = {ctx.level: ctx}
         self._evk_cache: dict[int, tuple] = {}
+        # id(u64 LinearTransformation) -> (it, its int32 conversion); the
+        # object is kept so that its id is not reused
+        self._flt_cache: dict[int, tuple] = {}
 
     def _ctx(self, level: int) -> FastCKKSContext:
         c = self._ctx_cache.get(level)
@@ -148,8 +150,25 @@ class FastEvaluator(ckks.Evaluator):
 
     # -- composites ----------------------------------------------------------
     def evaluate_lintrans(self, ct: Ciphertext, lt_obj, gks=None) -> Ciphertext:
-        raise NotImplementedError("FastEvaluator.evaluate_lintrans needs "
-                                  "fast/flintrans.py, not ported yet (ROADMAP A6)")
+        """BSGS (or naive, n1 == 0) diagonal-matrix multiply on the int32
+        path (``fast/flintrans.py``).  The u64 ``lt_obj``'s plaintexts are
+        converted to plain-domain int32 once and cached by the object's
+        identity; ``gks`` is unused: the galois keys are the context's."""
+        flt = self.fast_lintrans(lt_obj)
+        level = min(ct.level, lt_obj.level_q)
+        ct = self._drop_level(ct, level)
+        matvec = flintrans.matvec_naive if lt_obj.n1 == 0 else flintrans.matvec_bsgs
+        out0, out1 = matvec(self._ctx(level), flt, ct.value[0], ct.value[1],
+                            self.params.galois_element)
+        return ct.with_value((out0, out1)).with_metadata(scale=ct.scale * lt_obj.scale)
+
+    def fast_lintrans(self, lt_obj) -> flintrans.FastLinearTransformation:
+        """The int32 conversion of a u64 ``LinearTransformation``, made once."""
+        hit = self._flt_cache.get(id(lt_obj))
+        if hit is None:
+            hit = (lt_obj, flintrans.convert_lintrans(self.params, lt_obj))
+            self._flt_cache[id(lt_obj)] = hit
+        return hit[1]
 
     def trace_log_n(self, ct: Ciphertext, log_n: int) -> Ciphertext:
         """The fast mirror of rlwe trace (core/rlwe/inner_sum.go:36-124), NTT

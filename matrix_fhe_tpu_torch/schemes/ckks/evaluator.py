@@ -7,10 +7,8 @@ schemes/ckks/evaluator.go):
   * mul / mul_relin: the ciphertext tensor in the NTT domain (:764-918);
   * rescale: DivRoundByLastModulusNTT, scale /= q_l (:500-542);
   * rotate / conjugate via Galois automorphisms (:1195-1232);
-  * plaintext and scalar ops, inner sum (:1284-1321).
-
-``evaluate_lintrans`` needs the linear-transformation circuits, which are
-not ported yet (ROADMAP A6): it raises ``NotImplementedError``.
+  * plaintext and scalar ops, inner sum (:1284-1321);
+  * diagonal-form linear transformations (``circuits/lintrans.py``).
 """
 
 from __future__ import annotations
@@ -157,10 +155,9 @@ class Evaluator:
         return rlwe_eval.apply_evaluation_key(self.params, ct, evk)
 
     def evaluate_lintrans(self, ct: Ciphertext, lt_obj, gks=None) -> Ciphertext:
-        """One diagonal-form linear transformation: the circuits it needs
-        (circuits/lintrans.py) are not ported yet."""
-        raise NotImplementedError("evaluate_lintrans needs circuits/lintrans.py, "
-                                  "not ported yet (ROADMAP A6)")
+        """One diagonal-form linear transformation (BSGS double-hoisted)."""
+        from matrix_fhe_tpu_torch.circuits import lintrans as lt
+        return lt.evaluate(self.params, ct, lt_obj, self.gks if gks is None else gks)
 
     def trace_log_n(self, ct: Ciphertext, log_n: int) -> Ciphertext:
         """rlwe trace with an explicit subring degree (inner_sum.go:36)."""

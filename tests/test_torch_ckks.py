@@ -20,6 +20,7 @@ from matrix_fhe_tpu.rlwe import encryptor as jenc
 from matrix_fhe_tpu.rlwe import keys as JK
 from matrix_fhe_tpu.schemes import ckks as jckks
 from matrix_fhe_tpu_torch import carry
+from matrix_fhe_tpu_torch.circuits import lintrans as tlt
 from matrix_fhe_tpu_torch.rlwe import decryptor as tdec
 from matrix_fhe_tpu_torch.rlwe import encryptor as tenc
 from matrix_fhe_tpu_torch.schemes import ckks as tckks
@@ -150,7 +151,18 @@ def test_evaluator_matches_jax(ctx):
     dec = ctx["tenc"].decode(tdec.decrypt(ctx["tparams"], t["sk"], inner))
     tckks.precision.assert_precision(v + np.roll(v, -1), dec, 18)
     assert tev.galois_elements_for_inner_sum(2, 7) == jev.galois_elements_for_inner_sum(2, 7)
-    with pytest.raises(NotImplementedError, match="A6"):
-        tev.evaluate_lintrans(t["cts"][0], None)
+    # evaluate_lintrans (ported in A6): one diagonal, encoded at scale q_l so
+    # that the rescale cancels it, multiplies the slots
+    tparams = ctx["tparams"]
+    level = t["cts"][0].level
+    d = np.linspace(-1, 1, tparams.max_slots)
+    tr = tlt.encode(ctx["tenc"].embed_qp, {0: d}, tlt.LinearTransformationParameters(
+        diagonals_index_list=[0], level_q=level, level_p=tparams.max_level_p,
+        scale=Fraction(tparams.q[level]), log_dimensions=(0, tparams.log_max_slots),
+        log_bsgs_ratio=-1))
+    out = tev.rescale(tev.evaluate_lintrans(t["cts"][0], tr))
+    assert out.scale == t["cts"][0].scale
+    dec = ctx["tenc"].decode(tdec.decrypt(tparams, t["sk"], out))
+    tckks.precision.assert_precision(ctx["vals"][0] * d, dec, 20)
     with pytest.raises(ValueError, match="Galois key"):
         tev.rotate(t["cts"][0], 2)

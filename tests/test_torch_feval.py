@@ -33,6 +33,7 @@ from matrix_fhe_tpu.rlwe import encryptor as jenc
 from matrix_fhe_tpu.rlwe import keys as JK
 from matrix_fhe_tpu.schemes import ckks as jckks
 from matrix_fhe_tpu_torch import carry
+from matrix_fhe_tpu_torch.circuits import lintrans as tlt
 from matrix_fhe_tpu_torch.fast import fckks as tfckks
 from matrix_fhe_tpu_torch.fast import feval as tfeval
 from matrix_fhe_tpu_torch.rlwe import decryptor as tdec
@@ -194,8 +195,19 @@ def test_automorphisms(step, got):
 def test_trace_mod_raise_and_evaluation_key(step, ctx, got):
     _check(step, got, ("trace_log_n 5", "mod_raise", "apply_evaluation_key"))
     fast = ctx["fast"]
-    with pytest.raises(NotImplementedError, match="A6"):
-        fast.evaluate_lintrans(ctx["fcts"][0], None)
+    # evaluate_lintrans (ported in A6) runs fast/flintrans.py on the int32
+    # limbs: a transform over diagonals 0, 1 and -1 equals the u64
+    # evaluator's (tests/test_torch_flintrans.py holds both against JAX)
+    tparams = ctx["tparams"]
+    slots = tparams.max_slots
+    rng = np.random.default_rng(3)
+    diags = {k: rng.uniform(-1, 1, slots) for k in (0, 1, slots - 1)}
+    tr = tlt.encode(tckks.Encoder(tparams).embed_qp, diags, tlt.LinearTransformationParameters(
+        diagonals_index_list=list(diags), level_q=tparams.max_level,
+        level_p=tparams.max_level_p, scale=tparams.default_scale,
+        log_dimensions=(0, tparams.log_max_slots), log_bsgs_ratio=-1))
+    _same(fast.evaluate_lintrans(ctx["fcts"][0], tr),
+          ctx["u64"].evaluate_lintrans(ctx["t"]["cts"][0], tr))
     with pytest.raises(ValueError):
         tfeval.FastEvaluator(ctx["tparams"], fast._ctx(3))
 

@@ -125,6 +125,10 @@ def eq(got, want):
         assert len(got) == len(want)
         for g, w in zip(got, want):
             eq(g, w)
+    elif isinstance(want, dict):
+        assert got.keys() == want.keys()
+        for k in want:
+            eq(got[k], want[k])
     elif hasattr(want, "__dataclass_fields__"):
         for f in want.__dataclass_fields__:
             eq(getattr(got, f), getattr(want, f))

@@ -1,0 +1,53 @@
+"""Digests of the JAX package's circuit outputs, pinned by the PyTorch port's
+circuit tests.
+
+    python tools/port_circuit_digests.py [test_torch_polynomial ...]
+
+Each named test module (default: all of ``MODULES``) defines
+``jax_context()`` (the JAX package's parameters, keys and ciphertexts from
+its seeds), ``CASES`` (one function a circuit over a namespace of modules,
+run here on the JAX package's) and ``DIGESTS``; this runs every case on the
+JAX package on the CPU and prints the ``DIGESTS`` dict to paste in, the
+sha256 that ``digest`` (tests/test_torch_polynomial.py) gives of its
+output.  The circuits run eagerly, as the JAX package's own tests run them:
+minutes a module.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
+sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
+
+MODULES = ("test_torch_polynomial", "test_torch_mod1", "test_torch_lintrans",
+           "test_torch_dft", "test_torch_flintrans", "test_torch_fdft",
+           "test_torch_bootstrapping", "test_torch_fboot")
+
+
+def main() -> None:
+    import importlib
+
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    import matrix_fhe_tpu  # noqa: F401  (x64 on)
+    from test_torch_polynomial import JAX, digest
+
+    for name in sys.argv[1:] or MODULES:
+        t0 = time.perf_counter()
+        mod = importlib.import_module(name)
+        ctx = mod.jax_context()
+        print(f"# {name}: context {time.perf_counter() - t0:.1f} s", flush=True)
+        lines = []
+        for case, fn in mod.CASES.items():
+            t1 = time.perf_counter()
+            lines.append(f'    "{case}": "{digest(fn(JAX, ctx))}",')
+            print(f"# {case}: {time.perf_counter() - t1:.1f} s", flush=True)
+        print(f"{name}.DIGESTS = {{\n" + "\n".join(lines) + "\n}", flush=True)
+
+
+if __name__ == "__main__":
+    main()

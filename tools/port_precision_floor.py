@@ -1,11 +1,11 @@
-"""Precision of the real-key CKKS session at the bench shape, from the JAX
-package on the CPU: the reference for the floor that ``chip_smoke.py``
-phase 8 holds the PyTorch port to.
+"""Precision of the circuits that ``chip_smoke.py`` holds the PyTorch port to,
+from the JAX package on the CPU: the references of the floors that phases 8
+and 9 pin (each floor is the figure printed here less 1 bit).
 
-    python tools/port_precision_floor.py
+    python tools/port_precision_floor.py [session] [bootstrap]
 
-The session (the same as phase 8's, with JAX's keys and random draws in
-place of the port's): logN = 14, the 19 + 3 primes < 2^23 of
+``session`` (phase 8): the same session as phase 8's, with JAX's keys and
+random draws in place of the port's: logN = 14, the 19 + 3 primes < 2^23 of
 ``find_fast_primes(2^14, 22)``, scale 2^45; a secret key, a relinearization
 key and galois keys for rotations by 1..8; two vectors of 8192 complex
 slots drawn from ``numpy.random.default_rng(0)`` (real parts then imaginary
@@ -15,6 +15,27 @@ rotate_hoisted of the first ciphertext over the 8 rotations; decrypt,
 decode, ``precision_stats``.  Prints the min L2 precision (bits) of the
 product and the lowest over the 8 rotations.  The keys and the errors are
 random, so another seed moves these figures by a fraction of a bit.
+
+``bootstrap`` (phase 9; ~8 min and ~7 GB on an 8-core CPU): the fast
+bootstrapper of ``FAST_N14`` (logN = 14, 17 + 3 primes < 2^23, 8192 slots,
+sparse weight 32), keys from ``jax.random.key(0)`` (secret) and ``key(1)``
+(evaluation keys), built by ``make_fast_bootstrapper``.  Two circuits of the
+bootstrap, each decoded and held against what it computes
+(``precision_stats``, mean and min L2 bits over the 8192 slots):
+
+* the DFT round trip: ``v`` (real then imaginary parts uniform in [-1, 1)
+  from ``default_rng(0)``) encoded at the top level, encrypted with
+  ``key(3)``, CoeffsToSlots then SlotsToCoeffs without EvalMod; the result,
+  divided by the product of the two matrices' scalings, is held against
+  ``v``.  At two input scales (``DFT_LOG_SCALES``): the default 2^15, whose
+  plaintext coefficients (~2^8) are what a bootstrap's message brings to
+  CoeffsToSlots, and 2^34, whose coefficients (~2^27) are what q0 times
+  the ModUp overflow brings;
+* EvalMod (``mod1.Evaluator.evaluate``) on the input of
+  ``tests/test_mod1.py``'s harness with ``default_rng(5)``: round(U) Q + u
+  encoded one level above the EvalMod level, encrypted with ``key(4)``,
+  scaled to the bottom scale and normalized by 1/(K q_diff); held against
+  the scaled sine it approximates.
 """
 
 from __future__ import annotations
@@ -29,6 +50,7 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 LOGN, NUM_Q, NUM_P, LOG_SCALE, SEED = 14, 19, 3, 45, 0
+DFT_LOG_SCALES = (15, 34)
 ROTATIONS = tuple(range(1, 9))
 
 
@@ -37,7 +59,7 @@ def vectors(slots: int, seed: int = SEED):
     return [rng.uniform(-1, 1, slots) + 1j * rng.uniform(-1, 1, slots) for _ in range(2)]
 
 
-def main() -> None:
+def session() -> None:
     import dataclasses
 
     import jax
@@ -85,6 +107,86 @@ def main() -> None:
     print(f"# logN={LOGN}, {NUM_Q}+{NUM_P} primes < 2^23, scale 2^{LOG_SCALE}, seed {SEED}; "
           f"{time.perf_counter() - t0:.1f} s on {jax.devices()[0].platform}")
     print(f"min precision: product {p_prod:.4f} bits, rotations {p_rot:.4f} bits")
+
+
+def boot_vector(slots: int, seed: int = SEED):
+    """The DFT round trip's input (and phase 9's bootstrap input)."""
+    rng = np.random.default_rng(seed)
+    return rng.uniform(-1, 1, slots) + 1j * rng.uniform(-1, 1, slots)
+
+
+def mod1_input(m1p, slots: int, seed: int = 5):
+    """tests/test_mod1.py:_evaluate_mod1's values and the function EvalMod
+    approximates on them."""
+    rng = np.random.default_rng(seed)
+    k = m1p.k - 1
+    q = m1p.q_diff * m1p.message_ratio
+    values = np.round(rng.uniform(-k, k, slots)) * q + rng.uniform(-1, 1, slots)
+    values[0] = k * q + 0.5
+    x = np.sin(2 * np.pi * (values / m1p.message_ratio / m1p.q_diff))
+    return values, x * m1p.message_ratio * m1p.q_diff / (2 * np.pi)
+
+
+def mod1_prepare(ev, ct, m1p, q0: int):
+    """tests/test_mod1.py:_evaluate_mod1's scaling to the bottom scale and
+    normalization to the Chebyshev variable (one level)."""
+    import math
+    scale = math.exp2(round(math.log2(q0 / m1p.message_ratio)))
+    ct = ev.scale_up(ct, round(scale / float(ct.scale)))
+    ct = ev.scale_up(ct, round(float(m1p.scaling_factor) / float(ct.scale) / m1p.message_ratio))
+    return ev.rescale(ev.mul_const(ct, 1.0 / (m1p.k * m1p.q_diff)))
+
+
+def bootstrap_circuits() -> None:
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    from matrix_fhe_tpu.circuits.ckks import bootstrapping as btp
+    from matrix_fhe_tpu.fast import fboot, feval
+    from matrix_fhe_tpu.rlwe import decryptor, encryptor, keys as K
+    from matrix_fhe_tpu.schemes import ckks
+
+    t0 = time.perf_counter()
+    p = btp.Parameters(fboot.FAST_N14)
+    params = p.params
+    sk = K.gen_secret_key(jax.random.key(0), params)
+    evk = btp.gen_evaluation_keys(jax.random.key(1), p, sk)
+    bts = fboot.make_fast_bootstrapper(p, evk)
+    enc, fev = bts.enc, bts.ev
+    print(f"# FAST_N14: logN={params.log_n}, {len(params.q)} + {len(params.p)} primes, "
+          f"{len(p.galois_elements())} galois keys; keys and bootstrapper "
+          f"{time.perf_counter() - t0:.1f} s on {jax.devices()[0].platform}")
+
+    def decode(ct):
+        return enc.decode(decryptor.decrypt(params, sk, feval.ct_to_u64(ct)))
+
+    def report(name, want, got):
+        st = ckks.precision_stats(want, got)
+        print(f"{name}: mean {st.avg_precision:.4f} bits, min {st.min_precision:.4f} bits "
+              f"[{time.perf_counter() - t0:.1f} s]")
+
+    v = boot_vector(params.max_slots)
+    scaling = bts.c2s_matrix.literal.scaling * bts.s2c_matrix.literal.scaling
+    for log_scale in DFT_LOG_SCALES:
+        ct = encryptor.encrypt(jax.random.key(3), params, sk, enc.encode(
+            v, level=params.max_level, scale=1 << log_scale))
+        re, im = bts.coeffs_to_slots(feval.ct_to_fast(ct))
+        out = bts.slots_to_coeffs(re, im)
+        report(f"dft round trip at scale 2^{log_scale} (level {out.level}, scaling "
+               f"{scaling!r})", v, decode(out) / scaling)
+
+    m1p = bts.mod1_params
+    values, want = mod1_input(m1p, params.max_slots)
+    ct = encryptor.encrypt(jax.random.key(4), params, sk,
+                           enc.encode(values, level=p.mod1_lit.level_q + 1))
+    ct = mod1_prepare(fev, feval.ct_to_fast(ct), m1p, params.q[0])
+    out = bts.mod1_eval.evaluate(ct)
+    report(f"eval_mod (level {out.level})", want, np.real(decode(out)))
+
+
+def main() -> None:
+    what = sys.argv[1:] or ["session", "bootstrap"]
+    for w in what:
+        {"session": session, "bootstrap": bootstrap_circuits}[w]()
 
 
 if __name__ == "__main__":
