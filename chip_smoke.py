@@ -98,15 +98,57 @@ Then bootstrapping, the third main path:
    keys copied over, the plain NTT) equal to the card's limb for limb and in
    the decoded values.
 
+Then the wide path (41-61-bit primes, 64-bit words) and kernel B4, the NTT
+of 64-bit words (csrc/ntt64.cu), which phases 8 and 9 now run too (every
+u64 ring NTT on the card; their card == CPU checks hold it against the
+plain NTT on the CPU, and its launches there are printed):
+
+10. B4 alone: bit-identical to its plain version (the torch-op u64 NTT of
+    ops/rings.py) forward and inverse at N = 2^6, 2^10, 2^14, 2^15 and 2^16
+    on 45-, 55- and 61-bit primes, rows [1, 1], [1, 9] and [2, 21], at the
+    cluster size the rule picks and at every size the kernel is built for
+    (against the CPU's plain version too for one row), with its device time
+    there at the cluster size the rule picks; the instructions a
+    64-bit butterfly of its hot pass, registers and spills
+    (tools/ntt_sass.py); and, after phases 11-13, bit-identical at every
+    shape they gave it, with its times at the PN14QP438 step's shapes (the
+    kernels-line time, the device time queued, L2 flushed, the wrapper's
+    host time, the plain version's time) beside the bound;
+11. the wide step at bench.py's two wide shapes (PN14QP438: 55 + 45x6-bit
+    Q, 55x2-bit P; wide61: 60 + 45x5-bit Q, 61x2-bit P), logN 14, each
+    with 8 galois keys: three requests of mul_relin_rescale and
+    rotations_hoisted over the 8 elements, B4 launches a request, the median
+    of 10 more, the first request's digests equal to the JAX package's
+    (tools/port_reference_digest.py wide), and every request equal to the
+    same step on the CPU (the plain NTT);
+12. one wide bootstrap at fboot.wide_parameters_literal(14) (17 + 2 primes
+    of 45-56 bits, 8192 slots, sparse secret weight 32) through the user's
+    entry points, cold and warm as phase 9: keygen (draws and deterministic
+    part), make_wide_bootstrapper, encode + encrypt, bootstrap (cold, warm,
+    3 more), decrypt + decode; B4 and B1 launches a bootstrap, peak device
+    memory, the stage-by-stage table, the same bootstrap on the CPU with the
+    card's keys equal to the card's limb for limb and decoded, and the
+    decoded precision held to the JAX package's criterion for this chain
+    (tests/test_wboot.py: mean >= 15 bits, min >= 5);
+13. the comparison and inverse circuits on the wide evaluator at logN 14
+    (tests/test_comparison_inverse.py's chain: 60 + 45x18-bit Q, 61x2-bit P,
+    scale 2^45, relinearization and inverse galois keys): sign, step, max,
+    min, goldschmidt_division and evaluate_positive_domain on 8192 slots
+    drawn as that test draws them, within its bounds, each equal to the
+    same circuit on the CPU with the card's keys.
+
 Prints a JSON line of per-kernel results, one entry per kernel entry point:
 launches on its path (phase 4 for ntt_fwd/ntt_bwd, 6 for the chain, 7 for
 w22; counts zeroed just before each run and read just after; ntt_fwd/ntt_bwd
 also give launches_by_path: phase 4's, phase 8's cold pass, and phase 9's
-bootstrap and evaluate apart), max |kernel - plain| (phases 3 and 9 for B1),
-the kernel's and plain version's times (phase 3's shapes summed, one launch
-each, for ntt_fwd/ntt_bwd; the path's shape for the others), and the bound:
-the larger of the bytes over the card's memory rate and the butterflies'
-integer operations over its int32 rate.  Times in that line are CUDA-event
+bootstrap and evaluate apart; ntt64_fwd/ntt64_bwd, kernel B4, phase 11's
+three PN14QP438 requests, with launches_by_path over phases 8, 9, 11, 12
+and 13), max |kernel - plain| (phases 3 and 9 for B1, 10 for B4), the
+kernel's and plain version's times (phase 3's shapes summed, one launch
+each, for ntt_fwd/ntt_bwd; the PN14QP438 step's shapes summed for B4; the
+path's shape for the others), and the bound: the larger of the bytes over
+the card's memory rate and the butterflies' integer operations over its
+int32 rate (for B4 the instructions of a 64-bit butterfly from its SASS).  Times in that line are CUDA-event
 means of launches issued back to back from the host (_event_ms).  No single
 PyTorch call computes a negacyclic NTT mod q, so library_ms is null.  Then, as its last line,
 {"ok": true, "device": {...}}.  Any failed check raises and exits non-zero.
@@ -187,6 +229,40 @@ BOOT_FLOORS = ("dft round trip 2^34", "eval_mod")
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_BUTTERFLY = 7
 INT32_OPS_PER_CLOCK_PER_SM = 128
+# Phases 10-13, the wide path and kernel B4 (csrc/ntt64.cu): the TPU
+# transform it replaces (wide_ntt.ntt_fwd / ntt_bwd, XLA int8 matmuls, not a
+# pl.pallas_call), the sizes phase 10 checks it at, and bench.py's two wide
+# step shapes (bench.py:214-216 and :292-293) with 8 galois keys for
+# rotations_hoisted; their digests come from tools/port_reference_digest.py
+# wide (the JAX package on the CPU, jitted, at logN 14, the same moduli).
+B4_SOURCE = "matrix_fhe_tpu_torch/csrc/ntt64.cu"
+B4_REPLACES = {"fwd": "matrix_fhe_tpu/ops/wide_ntt.py:286",
+               "bwd": "matrix_fhe_tpu/ops/wide_ntt.py:290"}
+B4_SIZES = (6, 10, 14, 15, 16)
+# wide61: bench.py's Q at logN 14 and, for its P, the two largest 61-bit
+# NTT-friendly primes below 2^61 (bench.py's first one, 2305843009214414849,
+# lies above 2^61, where the port's words stop: ROADMAP C)
+WIDE61_Q = (1152921504606748673, 35184372121601, 35184372744193, 35184373006337,
+            35184371138561, 35184370941953)
+WIDE61_P = (2305843009211662337, 2305843009211596801)
+WIDE_SHAPES = {
+    "pn14qp438": lambda wckks, dev: wckks.make_synthetic_context(
+        LOGN, 0, 0, moduli=(wckks.PN14QP438_Q, wckks.PN14QP438_P), seed=SEED,
+        num_rot=NUM_ROT, device=dev),
+    "wide61": lambda wckks, dev: wckks.make_synthetic_context(
+        LOGN, 0, 0, moduli=(WIDE61_Q, WIDE61_P), seed=SEED, num_rot=NUM_ROT, device=dev)}
+WIDE_STEP_SHA256 = {
+    "pn14qp438": ("22ec29b7c996268077d30019ce19f9d2ded8d0fec0a1c9867f9d54eb8b12c01d",
+                  "96be3223eb1793738305db5d728e583cd5629b6d9f9722705804266358cba9c3"),
+    "wide61": ("d69a8bf79a0e6e0388a56c01f749c6cf25458cdc5d515ae5f33b411658c4bc0d",
+               "148bf23cc7a71227e13fba9e3b6dd8bc65a7453dbc00aae9e00a989bd374aa31")}
+# Phase 12: the JAX package's criterion for the wide bootstrap
+# (tests/test_wboot.py:50-76): decoded mean precision >= 15 bits, min >= 5
+WIDE_BOOT_FLOOR = {"mean": 15.0, "min": 5.0}
+# Phase 13: tests/test_comparison_inverse.py's bounds (max |error|; atol for
+# Goldschmidt; atol + rtol |1/x| with 0.01 each for the inverse)
+CIRCUIT_BOUNDS = {"sign": 0.1, "step": 0.1, "max": 0.05, "min": 0.05,
+                  "goldschmidt_division": 1e-4, "evaluate_positive_domain": 0.01}
 
 
 def _digest(tensors) -> str:
@@ -685,6 +761,468 @@ def check_ntt_shapes(shapes: dict, dev, rng) -> list:
 
 
 
+# -- phases 10-13: the wide path (41-61-bit primes) and kernel B4 ------------------
+
+def _b4_counted(dev, fn):
+    """fn() and B4's launches in it (counts zeroed just before, read just after)."""
+    from matrix_fhe_tpu_torch.ops import ntt64_cuda
+    _sync(dev)
+    ntt64_cuda.fwd_launches = ntt64_cuda.bwd_launches = 0
+    out = fn()
+    return out, {"fwd": ntt64_cuda.fwd_launches, "bwd": ntt64_cuda.bwd_launches}
+
+
+def b4_shapes(fn, seen: dict):
+    """fn() with every B4 call recorded into ``seen``: {(direction, shape,
+    moduli): ring}."""
+    from matrix_fhe_tpu_torch.ops import ntt64_cuda
+    fwd, bwd = ntt64_cuda.ntt_fwd, ntt64_cuda.ntt_bwd
+
+    def recording(direction, kernel):
+        def call(x, ring):
+            seen.setdefault((direction, tuple(x.shape), ring.moduli_tuple), ring)
+            return kernel(x, ring)
+        return call
+
+    ntt64_cuda.ntt_fwd, ntt64_cuda.ntt_bwd = recording("fwd", fwd), recording("bwd", bwd)
+    try:
+        return fn()
+    finally:
+        ntt64_cuda.ntt_fwd, ntt64_cuda.ntt_bwd = fwd, bwd
+
+
+def _digest64(tensors) -> str:
+    """sha256 of words as little-endian int64 (tools/port_reference_digest.py wide)."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.cpu().numpy().astype("<i8").tobytes())
+    return h.hexdigest()
+
+
+def _b4_moduli(n: int) -> list[int]:
+    """7 primes each of 45, 55 and 61 bits (the 61-bit ones below 2^61)."""
+    from matrix_fhe_tpu_torch.utils import primes as pr
+    out = []
+    for bits in (45, 55, 61):
+        g = pr.NTTFriendlyPrimesGenerator(bits, 2 * n)
+        out += g.next_downstream_primes(7) if bits == 61 else g.next_alternating_primes(7)
+    return out
+
+
+def _words(rng, lead, moduli, n) -> torch.Tensor:
+    x = np.stack([rng.integers(0, q, lead + (n,), dtype=np.int64) for q in moduli], axis=-2)
+    x.reshape(-1, n)[0, :2] = [moduli[0] - 1, 0]
+    return torch.from_numpy(x)
+
+
+def _b4_bound(rows: int, limbs: int, n: int, instr_per_butterfly: float, int32_ops_per_s):
+    """(bytes time, operations time) in ms of one B4 transform of ``rows``
+    rows over ``limbs`` limbs: 8 B a word in and out, 16 B a table word (the
+    twiddle and its Shoup quotient); the 32-bit instructions of a 64-bit
+    butterfly (from SASS) at the SM's issue rate."""
+    nbytes = 8 * n * 2 * rows + 16 * n * limbs
+    ops = rows * (n // 2) * (n.bit_length() - 1) * instr_per_butterfly
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops / int32_ops_per_s * 1e3
+
+
+def check_b4_sizes(dev, rng, sms) -> list:
+    """B4 against its plain version at N = 2^6 to 2^16 on 45-, 55- and
+    61-bit primes, rows [1, 1], [1, 9] and [2, 21], at the cluster size the
+    rule picks and at every size the kernel is built for: one row a size,
+    with the device time (queued) of a transform each way at the picked C."""
+    from matrix_fhe_tpu_torch.ops import ntt64_cuda, rings
+    out = []
+    for logn in B4_SIZES:
+        n = 1 << logn
+        moduli = _b4_moduli(n)
+        ring = rings.new_ring(n, moduli, device=dev)
+        for lead, limbs in (((1,), 1), ((1,), 9), ((2,), 21)):
+            r = ring.limbs(0, limbs)
+            x_cpu = _words(rng, lead, r.moduli_tuple, n)
+            x = x_cpu.to(dev)
+            rows = int(np.prod(lead)) * limbs
+            picked = ntt64_cuda.geometry(rows, n, sms)
+            cs = [c for c in (1, 2, 4, 8) if (c == 1 or n >= ntt64_cuda.MIN_CLUSTER_N)
+                  and n // c <= ntt64_cuda.MAX_LOCAL_N]
+            assert picked in cs
+            err = 0
+            for fwd in (True, False):
+                want = (ntt64_cuda.ntt_fwd_plain if fwd else ntt64_cuda.ntt_bwd_plain)(x, r)
+                for c in cs:
+                    got = ntt64_cuda.launch(x, r, fwd, c)
+                    err = max(err, int((got != want).sum()))
+                if limbs == 1:  # and the plain version on the CPU
+                    cpu = rings.new_ring(n, list(r.moduli_tuple), device="cpu")
+                    want_cpu = (ntt64_cuda.ntt_fwd_plain if fwd else ntt64_cuda.ntt_bwd_plain)(
+                        x_cpu, cpu)
+                    err = max(err, int((want.cpu() != want_cpu).sum()))
+            back = r.intt(r.ntt(x))
+            torch.cuda.synchronize()
+            assert torch.equal(back, x), f"B4 2^{logn} {lead + (limbs,)}: inverse(forward(x)) != x"
+            out.append((logn, lead + (limbs, n), picked, cs, _device_ms(lambda: r.ntt(x)),
+                        _device_ms(lambda: r.intt(x)), err))
+    return out
+
+
+def check_b4_shapes(shapes: dict, dev, rng) -> list:
+    """B4 against its plain version at each recorded shape (its moduli,
+    random words), its cluster size and its times there: one row a shape."""
+    from matrix_fhe_tpu_torch.ops import ntt64_cuda
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = []
+    for (d, shape, _), ring in sorted(shapes.items(), key=lambda kv: (kv[0][1], kv[0][0])):
+        kern = ntt64_cuda.ntt_fwd if d == "fwd" else ntt64_cuda.ntt_bwd
+        plain = ntt64_cuda.ntt_fwd_plain if d == "fwd" else ntt64_cuda.ntt_bwd_plain
+        x = _words(rng, shape[:-2], ring.moduli_tuple, shape[-1]).to(dev)
+        err = int((kern(x, ring) != plain(x, ring)).sum())
+        rows.append((d, shape, ntt64_cuda.geometry(int(np.prod(shape[:-1])), shape[-1], sms),
+                     err, ring))
+    return rows
+
+
+def time_b4(d, shape, ring, dev, rng, flush) -> dict:
+    from matrix_fhe_tpu_torch.ops import ntt64_cuda
+    kern = ntt64_cuda.ntt_fwd if d == "fwd" else ntt64_cuda.ntt_bwd
+    plain = ntt64_cuda.ntt_fwd_plain if d == "fwd" else ntt64_cuda.ntt_bwd_plain
+    x = _words(rng, shape[:-2], ring.moduli_tuple, shape[-1]).to(dev)
+    return {"ms": _event_ms(lambda: kern(x, ring)), "device": _device_ms(lambda: kern(x, ring)),
+            "flushed": _flushed_ms(lambda: kern(x, ring), flush),
+            "host": _host_ms(lambda: kern(x, ring)), "plain_ms": _event_ms(lambda: plain(x, ring))}
+
+
+def wide_step(name: str, dev):
+    """Phase 11 for one of bench.py's wide shapes: three requests (each one
+    mul_relin_rescale and one rotations_hoisted over the 8 galois elements),
+    B4 launches a request, 10 steady repeats, the digests, and every request
+    against the same step on the CPU."""
+    from matrix_fhe_tpu_torch.fast import wckks
+    ctx, ops = WIDE_SHAPES[name](wckks, dev)
+    orders = [(0, 1, 2, 3), (2, 3, 0, 1), (1, 0, 3, 2)]
+    outs, lat, counts = [], [], []
+    for order in orders:
+        a = [ops[i] for i in order]
+        t0 = time.perf_counter()
+        step, c_step = _b4_counted(dev, lambda: wckks.mul_relin_rescale(ctx, *a))
+        _sync(dev)
+        t1 = time.perf_counter()
+        rots, c_rot = _b4_counted(dev, lambda: wckks.rotations_hoisted(ctx, a[0], a[1],
+                                                                         ctx.gal_els))
+        _sync(dev)
+        t2 = time.perf_counter()
+        outs.append((step, rots))
+        lat.append(((t1 - t0) * 1e3, (t2 - t1) * 1e3))
+        counts.append({"mul_relin_rescale": c_step, "rotations_hoisted": c_rot})
+    assert all(c == counts[0] for c in counts), f"{name}: B4 launches differ by request {counts}"
+    reps = {"mul_relin_rescale": [], "rotations_hoisted": []}
+    for _ in range(10):
+        t0 = time.perf_counter()
+        wckks.mul_relin_rescale(ctx, *ops)
+        _sync(dev)
+        t1 = time.perf_counter()
+        wckks.rotations_hoisted(ctx, ops[0], ops[1], ctx.gal_els)
+        _sync(dev)
+        reps["mul_relin_rescale"].append((t1 - t0) * 1e3)
+        reps["rotations_hoisted"].append((time.perf_counter() - t1) * 1e3)
+    (o0, o1), rots = outs[0]
+    want_step, want_rots = WIDE_STEP_SHA256[name]
+    assert _digest64([o0, o1]) == want_step, f"{name}: mul_relin_rescale digest != JAX's"
+    assert _digest64([t for g in ctx.gal_els for t in rots[g]]) == want_rots, \
+        f"{name}: rotations_hoisted digest != JAX's"
+    # every request on the CPU, through the plain NTT
+    cpu = torch.device("cpu")
+    cpu_ctx, cpu_ops = WIDE_SHAPES[name](wckks, cpu)
+    t0 = time.perf_counter()
+    for order, (step, rots) in zip(orders, outs):
+        a = [cpu_ops[i] for i in order]
+        assert _same(step, wckks.mul_relin_rescale(cpu_ctx, *a)), f"{name}: step, card != CPU"
+        assert _same(rots, wckks.rotations_hoisted(cpu_ctx, a[0], a[1], cpu_ctx.gal_els)), \
+            f"{name}: rotations, card != CPU"
+    cpu_s = time.perf_counter() - t0
+    return {"ctx": ctx, "lat": lat, "counts": counts[0], "reps": reps, "cpu_s": cpu_s}
+
+
+def wide_boot_session(p, sk, evk, times: dict, repeats: int = 0) -> dict:
+    """Phase 12: build the wide bootstrapper, encrypt the input at the
+    residual level, bootstrap it (``repeats`` more times after, timed apart),
+    decrypt and decode."""
+    from matrix_fhe_tpu_torch.fast import fboot
+    from matrix_fhe_tpu_torch.ops import ntt_cuda
+    from matrix_fhe_tpu_torch.rlwe import encryptor
+    from tools.port_precision_floor import boot_vector
+    params = p.params
+    dev = params.device
+    bts, setup_b4 = _b4_counted(dev, lambda: _timed(
+        times, "make_wide_bootstrapper", dev, lambda: fboot.make_wide_bootstrapper(p, evk)))
+    v = boot_vector(params.max_slots)
+    ct = _timed(times, "encode + encrypt", dev, lambda: encryptor.encrypt(
+        _gen(203), params, sk, bts.enc.encode(v, level=p.residual_level)))
+    ntt_cuda.launches = 0
+    out, counts = _b4_counted(dev, lambda: _timed(times, "bootstrap", dev,
+                                                  lambda: bts.bootstrap(ct)))
+    b1 = ntt_cuda.launches
+    reps = []
+    for _ in range(repeats):
+        _timed(times, "bootstrap again", dev, lambda: bts.bootstrap(ct))
+        reps.append(times["bootstrap again"])
+    dec = _timed(times, "decrypt + decode", dev, lambda: boot_decode(bts, sk, out))
+    return {"bts": bts, "v": v, "ct": ct, "boot": out, "dec": dec, "repeats": reps,
+            "counts": {"bootstrap": counts, "make_wide_bootstrapper": setup_b4, "B1": b1}}
+
+
+def circuit_inputs(slots: int) -> dict:
+    """tests/test_comparison_inverse.py's inputs at ``slots``: {name: values}."""
+    def sign_values(rng):
+        v = rng.uniform(1 / 16, 1, slots)
+        return v * rng.choice([-1.0, 1.0], slots)
+
+    rng = np.random.default_rng(3)
+    a, b = rng.uniform(-0.5, 0.5, slots), rng.uniform(-0.5, 0.5, slots)
+    mask = np.abs(a - b) < 1 / 16
+    b[mask] = a[mask] + 1 / 8
+    return {"sign": sign_values(np.random.default_rng(1)),
+            "step": sign_values(np.random.default_rng(2)), "a": a, "b": b,
+            "goldschmidt": np.random.default_rng(4).uniform(0.25, 1.75, slots),
+            "inverse": np.random.default_rng(5).uniform(0.3, 3.0, slots)}
+
+
+def wide_circuits(dev, times: dict, keys=None) -> dict:
+    """Phase 13: the sign, step, max/min, Goldschmidt division and inverse
+    circuits on the wide evaluator at logN 14 (the chain of
+    tests/test_comparison_inverse.py), on ``keys`` (secret,
+    relinearization, galois) or the port's own made on ``dev``; each held to
+    tests/test_comparison_inverse.py's bounds."""
+    from matrix_fhe_tpu_torch.circuits.ckks import comparison, inverse, minimax
+    from matrix_fhe_tpu_torch.fast import weval
+    from matrix_fhe_tpu_torch.rlwe import decryptor, encryptor
+    from matrix_fhe_tpu_torch.rlwe import keys as K
+    from matrix_fhe_tpu_torch.schemes import ckks
+    params = ckks.new_parameters(ckks.CKKSParametersLiteral(
+        logn=LOGN, logq=(60,) + (45,) * 18, logp=(61, 61), log_default_scale=45), device=dev)
+    if keys is None:
+        sk = K.gen_secret_key(_gen(301), params)
+        rlk = K.gen_relinearization_key(_gen(302), params, sk)
+        gal = params.galois_element_inverse()
+        keys = sk, rlk, {gal: K.gen_galois_key(_gen(303), params, sk, gal)}
+    sk, rlk, gks = keys
+    wev = weval.make_wide_evaluator(params, rlk, gks)
+    enc = ckks.Encoder(params)
+    vals = circuit_inputs(params.max_slots)
+    cts = {k: encryptor.encrypt(_gen(310 + i), params, sk, enc.encode(v))
+           for i, (k, v) in enumerate(vals.items())}
+    sign_poly = _timed(times, "sign polynomial (host)", dev,
+                       lambda: minimax.gen_minimax_composite_polynomial(4, 20, [7, 7]))
+    mm_ev = minimax.Evaluator(wev, enc)
+    cmp_ev, inv_ev = comparison.Evaluator(mm_ev, sign_poly), inverse.Evaluator(mm_ev)
+    circuits = {
+        "sign": lambda: cmp_ev.sign(cts["sign"]), "step": lambda: cmp_ev.step(cts["step"]),
+        "max": lambda: cmp_ev.max(cts["a"], cts["b"]), "min": lambda: cmp_ev.min(cts["a"], cts["b"]),
+        "goldschmidt_division": lambda: inv_ev.goldschmidt_division(cts["goldschmidt"], -2.0),
+        "evaluate_positive_domain": lambda: inv_ev.evaluate_positive_domain(
+            cts["inverse"], -2.0, 2.0)}
+    want = {"sign": np.sign(vals["sign"]), "step": (np.sign(vals["step"]) + 1) / 2,
+            "max": np.maximum(vals["a"], vals["b"]), "min": np.minimum(vals["a"], vals["b"]),
+            "goldschmidt_division": 1 / vals["goldschmidt"],
+            "evaluate_positive_domain": 1 / vals["inverse"]}
+    out, counts, errs, ok = {}, {}, {}, {}
+    for name, fn in circuits.items():
+        out[name], counts[name] = _b4_counted(dev, lambda: _timed(times, name, dev, fn))
+        got = np.real(enc.decode(decryptor.decrypt(params, sk, out[name])))
+        err = np.abs(got - want[name])
+        errs[name] = float(err.max())
+        # the inverse's bound is np.testing's atol + rtol |1/x|, 0.01 each
+        tol = CIRCUIT_BOUNDS[name] * (1 + np.abs(want[name])) \
+            if name == "evaluate_positive_domain" else CIRCUIT_BOUNDS[name]
+        ok[name] = bool(np.all(err <= tol))
+    return {"out": out, "keys": keys, "errs": errs, "ok": ok, "counts": counts}
+
+
+def wide_phases(dev, smi: str, rng, sms: int, int32_ops_per_s: float) -> dict:
+    """Phases 10-13 (see the module's docstring); returns what the kernels
+    line reports of B4."""
+    from matrix_fhe_tpu_torch.circuits.ckks import bootstrapping as btp
+    from matrix_fhe_tpu_torch.fast import fboot
+    from matrix_fhe_tpu_torch.ops import ntt64_cuda
+    from matrix_fhe_tpu_torch.schemes import ckks
+    from tools import ntt_sass
+
+    # -- 10. B4 alone ----------------------------------------------------------------
+    size_rows = check_b4_sizes(dev, rng, sms)
+    for logn, shape, picked, cs, f_ms, b_ms, err in size_rows:
+        assert err == 0, f"B4 {list(shape)}: kernel != plain at C in {cs} ({err} words)"
+        print(f"phase b4: {str(list(shape)):20s} C={picked} (rule), kernel == plain at C in "
+              f"{cs}, forward and inverse; inverse(forward(x)) == x; device time queued "
+              f"fwd {f_ms * 1e3:.1f} us, bwd {b_ms * 1e3:.1f} us | {smi}")
+    b4_funcs = ntt_sass.parse(ntt_sass.disassemble([LOGN], ntt64_cuda.SOURCE))
+    b4_regs = ntt_sass.ptxas_report(ntt_sass.build_logs(B4_SIZES, ntt64_cuda.SOURCE))
+    b4_instr = {}
+    for d in ("fwd", "bwd"):
+        for c in (1, 8):
+            name = f"ntt64_{d}_kernel<{LOGN}, {c}>"
+            instrs, flies = ntt_sass.hot_pass64(b4_funcs[name])
+            b4_instr[d, c] = instrs / flies
+            print(f"phase b4: {name} hot pass {instrs} instructions / {flies} butterflies = "
+                  f"{instrs / flies:.2f} a butterfly; {b4_regs[name]['registers']} registers, "
+                  f"{b4_regs[name]['spill_bytes']} spill bytes")
+    spills = {k: v["spill_bytes"] for k, v in b4_regs.items() if v.get("spill_bytes")}
+    print(f"phase b4: {len(b4_regs)} B4 kernels built, registers "
+          f"{min(v['registers'] for v in b4_regs.values())}-"
+          f"{max(v['registers'] for v in b4_regs.values())}, spills {spills or 'none'}")
+
+    # -- 11. the wide step at bench.py's shapes ------------------------------------------
+    b4_seen: dict = {}
+    steps, step_shapes = {}, {}
+    for name in WIDE_SHAPES:
+        seen: dict = {}
+        steps[name] = b4_shapes(lambda: wide_step(name, dev), seen)
+        b4_seen.update(seen)
+        if name == "pn14qp438":
+            step_shapes = seen
+        st = steps[name]
+        rq = st["ctx"].ring_q
+        print(f"phase wide step: {name}: logN {LOGN}, Q {len(rq.moduli_tuple)} x "
+              f"{[q.bit_length() for q in rq.moduli_tuple]}-bit, P "
+              f"{[p.bit_length() for p in st['ctx'].ring_p.moduli_tuple]}-bit, "
+              f"{len(st['ctx'].gal_els)} galois keys")
+        for r, (m, rot) in enumerate(st["lat"]):
+            print(f"phase wide step: {name} request {r}: mul_relin_rescale {m:.3f} ms, "
+                  f"rotations_hoisted x{NUM_ROT} {rot:.3f} ms | {smi}")
+        for k, v in st["reps"].items():
+            print(f"phase wide step: {name} steady {k}: median {statistics.median(v):.3f} ms "
+                  f"(min {min(v):.3f}, max {max(v):.3f}, 10 runs) | {smi}")
+        print(f"phase wide step: {name} B4 launches a request {st['counts']}; digests equal the "
+              f"JAX package's; every request equals the same step on the CPU (plain NTT; "
+              f"{st['cpu_s']:.1f} s for the three)")
+
+    # -- 12. one wide bootstrap at logN 14 -------------------------------------------------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    wp = btp.Parameters(fboot.wide_parameters_literal(LOGN), device=dev)
+    wparams = wp.params
+    print(f"phase wide boot: wide_parameters_literal({LOGN}): {len(wparams.q)} + "
+          f"{len(wparams.p)} primes of {min(q.bit_length() for q in wparams.q + wparams.p)}-"
+          f"{max(q.bit_length() for q in wparams.q + wparams.p)} bits, {wparams.max_slots} "
+          f"slots, residual level {wp.residual_level}, {len(wp.galois_elements())} galois "
+          f"keys, sparse secret weight {wp.lit.ephemeral_secret_weight}")
+    wtimes: dict = {}
+    (wsk, wevk), b4_wkeys = _b4_counted(dev, lambda: boot_keys(wp, wtimes))
+    wboot = b4_shapes(lambda: wide_boot_session(wp, wsk, wevk, wtimes), b4_seen)
+    wpeak = torch.cuda.max_memory_allocated()
+    wwarm_times: dict = {}
+    wkeys2 = boot_keys(wp, wwarm_times)
+    wwarm = wide_boot_session(wp, *wkeys2, wwarm_times, repeats=BOOT_REPEATS)
+    assert _same(wkeys2, (wsk, wevk)), "wide bootstrap keys: warm pass != cold pass"
+    for what in ("ct", "boot", "dec", "counts"):
+        assert _same(wwarm[what], wboot[what]), f"wide bootstrap {what}: warm pass != cold pass"
+    wout = wboot["boot"]
+    assert wout.level == wp.residual_level and wout.scale == wparams.default_scale
+    assert wboot["counts"]["bootstrap"]["fwd"] > 0 and wboot["counts"]["B1"] == 0
+    for name, ms in wtimes.items():
+        print(f"phase wide boot: {name:34s} cold {ms:10.3f} ms, warm {wwarm_times[name]:10.3f} ms"
+              f" | {smi}")
+    print(f"phase wide boot: bootstrap, warm, {BOOT_REPEATS} more: "
+          f"{', '.join(f'{t:.3f}' for t in wwarm['repeats'])} ms, median "
+          f"{statistics.median(wwarm['repeats']):.3f} ms | {smi}")
+    print(f"phase wide boot: peak device memory {(wpeak - held) / 2**20:.1f} MiB above the "
+          f"{held / 2**20:.1f} MiB the earlier phases hold | {smi}")
+    print(f"phase wide boot: B4 launches a bootstrap {wboot['counts']['bootstrap']}, "
+          f"make_wide_bootstrapper {wboot['counts']['make_wide_bootstrapper']}, keygen "
+          f"{b4_wkeys}; B1 launches a bootstrap {wboot['counts']['B1']} (cold == warm)")
+    wst = ckks.precision_stats(wboot["v"], wboot["dec"])
+    floor_met = (wst.avg_precision >= WIDE_BOOT_FLOOR["mean"]
+                 and wst.min_precision >= WIDE_BOOT_FLOOR["min"])
+    print(f"phase wide boot: decoded precision of bootstrap: mean {wst.avg_precision:.4f} bits, "
+          f"min {wst.min_precision:.4f} bits over {len(wboot['dec'])} slots (the JAX package's "
+          f"criterion: mean >= {WIDE_BOOT_FLOOR['mean']}, min >= {WIDE_BOOT_FLOOR['min']}: "
+          f"{'met' if floor_met else 'MISSED'}) | {smi}")
+    wrows, wstaged = boot_stages(wboot["bts"], wsk, wboot["ct"], wboot["v"])
+    assert _same(wstaged, wout), "wide: the stages composed != bootstrap"
+    for stage, ct_s, own, total, note in wrows:
+        print(f"phase wide boot: stage {stage:13s} level {ct_s.level:2d} scale 2^"
+              f"{np.log2(float(ct_s.scale)):6.2f} | own mean {own[0]:8.4f} min {own[1]:8.4f} "
+              f"bits | total mean {total[0]:8.4f} min {total[1]:8.4f} bits | {note}")
+    # the same bootstrap on the CPU, with the card's keys, through the plain NTT
+    cpu = torch.device("cpu")
+    ctimes_boot: dict = {}
+    cpu_wbts = _timed(ctimes_boot, "make_wide_bootstrapper", cpu, lambda: fboot.make_wide_bootstrapper(
+        btp.Parameters(fboot.wide_parameters_literal(LOGN), device=cpu), _move(wevk, cpu)))
+    cpu_wout = _timed(ctimes_boot, "bootstrap", cpu,
+                      lambda: cpu_wbts.bootstrap(_move(wboot["ct"], cpu)))
+    assert _same(wout, cpu_wout), "wide bootstrap: card != CPU"
+    assert np.array_equal(boot_decode(cpu_wbts, _move(wsk, cpu), cpu_wout), wboot["dec"]), \
+        "wide bootstrap: decoded values, card != CPU"
+    print("phase wide boot: card == CPU (the card's keys, the plain NTT), limb for limb and "
+          "decoded; CPU reference " + ", ".join(f"{k} {v / 1e3:.1f} s"
+                                                 for k, v in ctimes_boot.items()))
+    del cpu_wbts, cpu_wout
+    assert floor_met, "wide bootstrap: decoded precision below the JAX package's criterion"
+    del wwarm, wkeys2
+
+    # -- 13. the comparison and inverse circuits on the wide evaluator ----------------------
+    ctimes: dict = {}
+    circ = b4_shapes(lambda: wide_circuits(dev, ctimes), b4_seen)
+    cpu_ctimes: dict = {}
+    cpu_circ = wide_circuits(cpu, cpu_ctimes, keys=_move(circ["keys"], cpu))
+    for name, err in circ["errs"].items():
+        same = _same(circ["out"][name], cpu_circ["out"][name])
+        print(f"phase circuits: {name:24s} {ctimes[name]:10.3f} ms, level out "
+              f"{circ['out'][name].level}, max |error| {err:.3e} (bound "
+              f"{CIRCUIT_BOUNDS[name]}{' (1 + |1/x|)' if name == 'evaluate_positive_domain' else ''}"
+              f"), B4 launches {circ['counts'][name]}, card == CPU: {same} | {smi}")
+        assert circ["ok"][name], f"{name}: outside the JAX test's bound"
+        assert same, f"{name}: card != CPU"
+    print(f"phase circuits: sign polynomial {ctimes['sign polynomial (host)']:.1f} ms on the host; "
+          f"CPU reference (the card's keys, the plain NTT) "
+          f"{sum(v for k, v in cpu_ctimes.items() if k in circ['out']) / 1e3:.1f} s")
+
+    # -- 10, continued: B4 at every shape phases 11-13 gave it --------------------------------
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    shape_rows = check_b4_shapes(b4_seen, dev, rng)
+    for d, shape, c, err, _ in shape_rows:
+        assert err == 0, f"B4 {d} {shape}: kernel != plain ({err})"
+    print(f"phase b4: B4 at the {len(shape_rows)} shapes (direction, shape, moduli) of phases "
+          f"11-13: kernel == plain at every one")
+    b4_stats = {d: {"max_abs_err": 0, "ms": 0.0, "plain_ms": 0.0} for d in ("fwd", "bwd")}
+    b4_extra = {d: {"device": 0.0, "flushed": 0.0, "host": 0.0} for d in ("fwd", "bwd")}
+    b4_bounds = {"fwd": [], "bwd": []}
+    for d, shape, c, err, ring in shape_rows:
+        if (d, shape, ring.moduli_tuple) not in step_shapes:
+            continue
+        t = time_b4(d, shape, ring, dev, rng, flush)
+        rows_n = int(np.prod(shape[:-1]))
+        b = _b4_bound(rows_n, shape[-2], shape[-1], b4_instr[d, c], int32_ops_per_s)
+        b4_bounds[d].append(b)
+        b4_stats[d]["ms"] += t["ms"]
+        b4_stats[d]["plain_ms"] += t["plain_ms"]
+        for k in b4_extra[d]:
+            b4_extra[d][k] += t[k]
+        print(f"phase b4: step {d} {str(list(shape)):18s} C={c} kernel {t['ms']:.4f} ms, device "
+              f"queued {t['device']:.4f} ms, L2 flushed {t['flushed']:.4f} ms, host "
+              f"{t['host']:.4f} ms a call | plain {t['plain_ms']:.4f} ms | bound bytes "
+              f"{b[0] * 1e3:.3f} us, operations {b[1] * 1e3:.3f} us | {smi}")
+    for d in ("fwd", "bwd"):
+        b4_stats[d].update(_bound_entry(b4_bounds[d]))
+        print(f"phase b4: the PN14QP438 step's {len(b4_bounds[d])} {d} shapes summed: kernel "
+              f"{b4_stats[d]['ms']:.4f} ms, device queued {b4_extra[d]['device']:.4f} ms, L2 "
+              f"flushed {b4_extra[d]['flushed']:.4f} ms, host {b4_extra[d]['host']:.4f} ms, plain "
+              f"{b4_stats[d]['plain_ms']:.4f} ms, bound {b4_stats[d]['bound_ms']:.4f} ms by "
+              f"{b4_stats[d]['bound_by']} | {smi}")
+    for d, shape, c, err, _ in shape_rows:
+        print(f"phase b4:   {d} {str(list(shape)):20s} C={c}")
+    del flush
+    def total(*counts):
+        return {d: sum(c[d] for c in counts) for d in ("fwd", "bwd")}
+
+    by_path = {
+        "wide step PN14QP438 (phase 11, a request)": total(*steps["pn14qp438"]["counts"].values()),
+        "wide step wide61 (phase 11, a request)": total(*steps["wide61"]["counts"].values()),
+        "wide bootstrap (phase 12)": wboot["counts"]["bootstrap"],
+        "wide bootstrap setup (phase 12: keygen, make_wide_bootstrapper)":
+            total(b4_wkeys, wboot["counts"]["make_wide_bootstrapper"]),
+        "circuits (phase 13)": total(*circ["counts"].values())}
+    return {"size_rows": size_rows, "shape_rows": shape_rows, "stats": b4_stats,
+            "by_path": by_path}
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -701,11 +1239,13 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}")
 
     # -- 2. build -------------------------------------------------------------
+    from matrix_fhe_tpu_torch.ops import ntt64_cuda
     t0 = time.perf_counter()
-    built = ntt_cuda.build(PATH_LOGNS)
+    built = ntt_cuda.build_all([(ntt_cuda.SOURCE, logn) for logn in PATH_LOGNS]
+                               + [(ntt64_cuda.SOURCE, logn) for logn in B4_SIZES])
     print(f"phase build: built {len(built)} libraries, "
-          f"{', '.join(ntt_cuda.library_path(logn).name for logn in built)}, in "
-          f"{time.perf_counter() - t0:.2f} s")
+          f"{', '.join(ntt_cuda.library_path(logn, src).name for src, logn in built)}, in "
+          f"{time.perf_counter() - t0:.2f} s (one nvcc each, started together)")
 
     # -- 3. kernel vs plain at the step's NTT shapes ----------------------------
     n = 1 << LOGN
@@ -994,8 +1534,10 @@ def main() -> int:
     held = torch.cuda.memory_allocated()  # by the earlier phases
     params = session_params(dev)
     times: dict = {}
-    sk, rlk, gks = session_keys(params, SESSION_ROTATIONS, times)
-    out = session_run(params, sk, rlk, gks, SESSION_ROTATIONS, times)
+    (sk, rlk, gks), b4_keygen = _b4_counted(
+        dev, lambda: session_keys(params, SESSION_ROTATIONS, times))
+    out, b4_session = _b4_counted(
+        dev, lambda: session_run(params, sk, rlk, gks, SESSION_ROTATIONS, times))
     peak = torch.cuda.max_memory_allocated()
     # the warm pass: the same session again, every context and block made
     warm_times: dict = {}
@@ -1012,7 +1554,8 @@ def main() -> int:
               f" | {smi}")
     print(f"phase session: peak device memory {(peak - held) / 2**20:.1f} MiB above the "
           f"{held / 2**20:.1f} MiB the earlier phases hold ({peak / 2**20:.1f} MiB in all) | {smi}")
-    print(f"phase session: B1 launches {out['counts']}")
+    print(f"phase session: B1 launches {out['counts']}; B4 launches (the u64 NTT) keygen "
+          f"{b4_keygen}, encode to decode {b4_session}")
     for what, floor in PRECISION_FLOOR.items():
         got = out["precision"][what]
         print(f"phase session: min precision {what} {got:.4f} bits (floor {floor:.4f})")
@@ -1054,8 +1597,8 @@ def main() -> int:
           f"{len(bp.galois_elements())} galois keys, sparse secret weight "
           f"{bp.lit.ephemeral_secret_weight}")
     btimes: dict = {}
-    bsk, bevk = boot_keys(bp, btimes)
-    boot = boot_session(bp, bsk, bevk, btimes)
+    (bsk, bevk), b4_bkeys = _b4_counted(dev, lambda: boot_keys(bp, btimes))
+    boot, b4_bsession = _b4_counted(dev, lambda: boot_session(bp, bsk, bevk, btimes))
     bpeak = torch.cuda.max_memory_allocated()
     bwarm_times: dict = {}
     wkeys = boot_keys(bp, bwarm_times)
@@ -1077,7 +1620,8 @@ def main() -> int:
           f"{statistics.median(bwarm['repeats']):.3f} ms | {smi}")
     print(f"phase boot: peak device memory {(bpeak - held) / 2**20:.1f} MiB above the "
           f"{held / 2**20:.1f} MiB the earlier phases hold | {smi}")
-    print(f"phase boot: B1 launches {boot['counts']} (cold pass == warm pass)")
+    print(f"phase boot: B1 launches {boot['counts']} (cold pass == warm pass); B4 launches "
+          f"(the u64 NTT) keygen {b4_bkeys}, make_fast_bootstrapper to decode {b4_bsession}")
     for what, dec in (("bootstrap", boot["dec"]), ("evaluate(iterations=2)", boot["dec_meta"])):
         st = ckks.precision_stats(boot["v"], dec)
         print(f"phase boot: decoded precision of {what}: mean {st.avg_precision:.4f} bits, "
@@ -1135,17 +1679,34 @@ def main() -> int:
     print(f"phase boot: card == CPU (the card's keys, the plain NTT) for bootstrap and "
           f"evaluate(iterations=2), limb for limb and decoded; CPU reference "
           + ", ".join(f"{k} {v / 1e3:.1f} s" for k, v in cpu_times.items()))
+    boot_counts = boot["counts"]
+    del cpu_bts, cpu_out, cpu_meta, boot, bwarm
+
+    b4 = wide_phases(dev, smi, rng, sms, int32_ops_per_s)
     assert "jax" not in sys.modules
 
     by_path = {d: {"step (phase 4)": launches[d], "session (phase 8, cold pass)":
                    out["counts"]["multiply"][d] + out["counts"]["rotations"][d],
-                   "bootstrap (phase 9)": boot["counts"]["bootstrap"][d],
-                   "evaluate(iterations=2) (phase 9)": boot["counts"]["evaluate"][d]}
+                   "bootstrap (phase 9)": boot_counts["bootstrap"][d],
+                   "evaluate(iterations=2) (phase 9)": boot_counts["evaluate"][d]}
                for d in ("fwd", "bwd")}
     launches.update(chain_fwd=path["chain_fwd"], chain_bwd=path["chain_bwd"], **w22_path)
+    for d in ("fwd", "bwd"):
+        by_path[f"ntt64_{d}"] = {
+            "session (phase 8, cold pass: keygen + encode to decode)":
+                b4_keygen[d] + b4_session[d],
+            "bootstrap setup (phase 9, cold pass: keygen + make_fast_bootstrapper to decode)":
+                b4_bkeys[d] + b4_bsession[d],
+            **{k: v[d] for k, v in b4["by_path"].items()}}
+        launches[f"ntt64_{d}"] = 3 * b4["by_path"]["wide step PN14QP438 (phase 11, a request)"][d]
+        stats[f"ntt64_{d}"] = dict(b4["stats"][d], max_abs_err=max(
+            [r[-1] for r in b4["size_rows"]] + [r[3] for r in b4["shape_rows"] if r[0] == d]))
+        REPLACES[f"ntt64_{d}"] = B4_REPLACES[d]
     kernels = []
-    for d in ("fwd", "bwd", "chain_fwd", "chain_bwd", "w22_fwd", "w22_bwd"):
-        entry = {"name": f"ntt_{d}", "route": "cuda", "source": SOURCE,
+    for d in ("fwd", "bwd", "chain_fwd", "chain_bwd", "w22_fwd", "w22_bwd", "ntt64_fwd",
+              "ntt64_bwd"):
+        entry = {"name": d if d.startswith("ntt64") else f"ntt_{d}", "route": "cuda",
+                 "source": B4_SOURCE if d.startswith("ntt64") else SOURCE,
                  "replaces": REPLACES[d], "launches": launches[d], **stats[d],
                  "library_ms": None}
         if d in by_path:

@@ -15,6 +15,14 @@ fast-path limbs stay int32.
 The fast-path counterpart for a context's key stacks is
 ``fast/fckks.py:context_from_arrays``; ``fast/fckks.py:make_context`` builds
 a context from carried keys.
+
+``carry_wide(obj, params)`` carries the JAX package's wide-path objects,
+whose residues are centered int32 pairs [.., 2, L, N]: a ``WideCKKSContext``
+(its rings' moduli, its key stacks and galois elements), wide ciphertexts,
+plaintexts and pair arrays.  Each pair becomes the port's canonical word
+through ``ops/wide.py:unpack_pair``, read in the JAX mode of the parameter
+set (``use_pair31`` over ``params``' q and p moduli; a context carries its
+own).
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ import torch
 
 from matrix_fhe_tpu_torch.circuits.ckks import bootstrapping as btp
 from matrix_fhe_tpu_torch.ops import samplers as smp
+from matrix_fhe_tpu_torch.ops import wide
 from matrix_fhe_tpu_torch.rlwe import elements as el
 from matrix_fhe_tpu_torch.rlwe import keys as K
 from matrix_fhe_tpu_torch.rlwe import params as rp
@@ -125,3 +134,38 @@ def carry(obj, device="cuda"):
     if name == "GaloisKey":
         return K.GaloisKey(gadget=go(obj.gadget), gal_el=int(obj.gal_el))
     raise TypeError(f"no port counterpart for {name}")
+
+
+def carry_wide(obj, params=None, device="cuda"):
+    """The port's counterpart of a JAX wide-path object (see the module
+    docstring), its words on ``device``.  ``params`` (the JAX package's or
+    the port's parameters: anything with ``q`` and ``p``) gives the moduli
+    of ciphertexts, plaintexts and arrays; a context needs none."""
+    from matrix_fhe_tpu_torch.fast import wckks
+    device = resolve_device(device)
+    name = type(obj).__name__
+    if name == "WideCKKSContext":
+        Q = [int(q) for q in obj.ring_q.moduli_tuple]
+        P = [int(p) for p in obj.ring_p.moduli_tuple]
+        pair31 = obj.ring_q.tabs.shift == 31
+
+        def words(a, mods):
+            return None if a is None else wide.unpack_pair(np.asarray(a), mods, pair31)
+
+        return wckks.context_from_arrays(
+            obj.ring_q.n, Q, P, words(obj.rlk_q, Q), words(obj.rlk_p, P),
+            words(obj.gk_q, Q), words(obj.gk_p, P), tuple(obj.gal_els),
+            obj.rescale_limbs, device=device)
+    Q = [int(q) for q in params.q]
+    pair31 = wide.use_pair31(Q + [int(p) for p in (params.p or ())])
+
+    def unpack(a):
+        a = np.asarray(a)
+        return _words(wide.unpack_pair(a, Q[: a.shape[-2]], pair31), device)
+
+    if name == "Ciphertext":
+        return el.Ciphertext(value=tuple(unpack(v) for v in obj.value),
+                             metadata=carry(obj.metadata, device))
+    if name == "Plaintext":
+        return el.Plaintext(value=unpack(obj.value), metadata=carry(obj.metadata, device))
+    return unpack(obj)

@@ -1,0 +1,524 @@
+// Negacyclic NTT / inverse NTT over 64-bit RNS residues (moduli below 2^61),
+// for Hopper (sm_90a): kernel B4 of the port.
+//
+// Replaces the TPU's wide NTT, matrix_fhe_tpu/ops/wide_ntt.py:_transform
+// (ntt_fwd / ntt_bwd), which is not a Pallas kernel but XLA int8 matmuls
+// over 7 digit planes of a centered int32 pair: the TPU has no 64-bit (nor
+// widening 32x32) multiplier.  This card has a 64-bit multiply-high
+// (__umul64hi), so a residue is one 64-bit word and the transform is the
+// butterfly NTT of the port's u64 ring (ops/rings.py:_ntt_standard /
+// _intt_standard), bit for bit: each row of an [..., L, N] tensor (limb =
+// row mod L) is transformed under its modulus q < 2^61, the output is in the
+// reference's bit-reversed order (ring/ntt.go) and canonical in [0, q).
+// 16 <= N <= 2^16.
+//
+// What bounds it on this card: a limb-transform reads and writes N * 8 bytes
+// (128 KB each way at N = 2^14) plus its twiddles and their Shoup quotients
+// (16 bytes a word, read from L2 once the first rows have pulled them in);
+// it runs log2(N) stages of N/2 butterflies.  A 64-bit butterfly is about
+// four times the 32-bit instructions of B1's (a 64-bit multiply is several
+// 32-bit IMADs, __umul64hi more), so at the few rows of a step the launch
+// is bound by latency and bytes, and at many rows by the multiplies.
+//
+// What the design does about it: B1's structure (csrc/ntt.cu), for 64-bit
+// words.
+//   * Radix passes in registers, of up to R = 3 stages (8 words a group: the
+//     64-bit words and twiddles take twice B1's registers, so its radix-16
+//     groups would spill).  Forward: Cooley-Tukey over the bit-reversed psi
+//     powers; inverse: Gentleman-Sande over the psi^-1 powers, then N^-1.
+//   * One row a block, in dynamic shared memory padded by a word every 32.
+//     A row of 64-bit words is twice B1's: 132 KB at 2^14, so 2^15 (264 KB)
+//     and 2^16 (528 KB) do not fit one block's 227 KB.  A row split over a
+//     thread-block cluster of C CTAs (C = 2, 4, 8) holds N/C words a CTA:
+//     the first log2(C) forward stages (the last inverse ones) run as one
+//     radix-C pass across the cluster through distributed shared memory.  So
+//     the cluster is what makes N = 2^15 (C >= 2) and 2^16 (C >= 4)
+//     possible; ops/ntt64_cuda.py:geometry picks C.
+//   * Values stay lazily in [0, 4q) (forward) or [0, 2q) (inverse) between
+//     stages: 4q < 2^63 for q < 2^61.  Products are Shoup products with
+//     __umul64hi, exact in unsigned 64-bit arithmetic; one reduction to
+//     [0, q) at the store.
+//
+// All arithmetic is unsigned: signed overflow is undefined in CUDA C.
+// The kernels allocate nothing and launch on the caller's stream.
+
+#include <atomic>
+#include <cstdint>
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+
+#ifndef MFHE_NTT_LOGN
+#error "build with -DMFHE_NTT_LOGN=<log2 N>, 4 to 16"
+#endif
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+using u64 = unsigned long long;
+
+constexpr int kMaxThreads = 256;
+constexpr int kMinLogN = 4;
+constexpr int kMaxLogN = 16;
+static_assert(MFHE_NTT_LOGN >= kMinLogN && MFHE_NTT_LOGN <= kMaxLogN, "4 <= log2 N <= 16");
+// Rows split over a cluster only from N = 2^10 on (chunks of >= 128 words).
+constexpr int kMinClusterLogN = 10;
+// The largest local chunk one CTA holds (132 KB of 64-bit words, padded).
+constexpr int kMaxLocalLogN = 14;
+
+// ----------------------------------------------------------------------------
+// Geometry, all compile-time for a (log2 N, C) kernel.
+// ----------------------------------------------------------------------------
+
+__host__ __device__ constexpr int log2i(int c) { return c <= 1 ? 0 : 1 + log2i(c / 2); }
+
+// Shared-memory word of local word j: one pad word every 32.  For x, y with
+// disjoint bits phys(x | y) = phys(x) + phys(y).
+__host__ __device__ constexpr uint32_t phys(uint32_t j) { return j + (j >> 5); }
+
+// Threads of a CTA holding 2^lognl words: one a group of 8, 32 to 256.
+__host__ __device__ constexpr int threads_for(int lognl) {
+  return lognl - 3 <= 5 ? 32 : (lognl - 3 >= 8 ? kMaxThreads : 1 << (lognl - 3));
+}
+
+constexpr size_t smem_for(int lognl) {
+  return sizeof(u64) * phys(1u << lognl);
+}
+
+// The local stages 0 .. lognl-1 in P = ceil(lognl / 3) passes, as even as
+// possible, the shorter ones first: 14 = 2 + 3 + 3 + 3 + 3, 11 = 3 + 4 + 4
+// is not allowed (R <= 3): 11 = 2 + 3 + 3 + 3.  Stages of the pass that
+// starts at local stage s0, and of the one that ends at stage `end`.
+__host__ __device__ constexpr int pass_count(int lognl) { return (lognl + 2) / 3; }
+__host__ __device__ constexpr int longer_from(int lognl) {
+  return (pass_count(lognl) - lognl % pass_count(lognl)) * (lognl / pass_count(lognl));
+}
+__host__ __device__ constexpr int pass_from(int lognl, int s0) {
+  return lognl / pass_count(lognl) + (s0 >= longer_from(lognl));
+}
+__host__ __device__ constexpr int pass_to(int lognl, int end) {
+  return lognl / pass_count(lognl) + (end > longer_from(lognl));
+}
+
+// ----------------------------------------------------------------------------
+// Arithmetic.
+// ----------------------------------------------------------------------------
+
+// w * x mod q in [0, 2q), for any x < 2^64, w < q < 2^62 and
+// w_shoup = floor(w * 2^64 / q).  The true value is below 2q < 2^64, so the
+// wrapping unsigned multiply-subtract returns it exactly.
+__device__ __forceinline__ u64 shoup_mul(u64 x, u64 w, u64 w_shoup, u64 q) {
+  return w * x - __umul64hi(w_shoup, x) * q;
+}
+
+// x - m if x >= m, else x (the wrapped difference is larger than x).
+__device__ __forceinline__ u64 csub(u64 x, u64 m) {
+  return min(x, x - m);
+}
+
+// Cooley-Tukey: (u, v) -> (u + w v, u - w v).  In and out: [0, 4q).
+__device__ __forceinline__ void ct_butterfly(u64& u, u64& v, u64 w, u64 ws, u64 q, u64 two_q) {
+  const u64 a = csub(u, two_q);                 // [0, 2q)
+  const u64 b = shoup_mul(v, w, ws, q);         // [0, 2q)
+  u = a + b;
+  v = a + two_q - b;
+}
+
+// Gentleman-Sande: (u, v) -> (u + v, w (u - v)).  In and out: [0, 2q).
+__device__ __forceinline__ void gs_butterfly(u64& u, u64& v, u64 w, u64 ws, u64 q, u64 two_q) {
+  const u64 s = csub(u + v, two_q);
+  v = shoup_mul(u + two_q - v, w, ws, q);
+  u = s;
+}
+
+// The 2^R - 1 twiddles of a group at pass-local stage d = 0 .. R-1 are the
+// 2^d consecutive table words from g 2^d; they go to t[2^d + p].
+template <int R>
+__device__ __forceinline__ void load_twiddles(u64 (&t)[1 << R], const u64* __restrict__ w,
+                                              uint32_t g) {
+#pragma unroll
+  for (int d = 0; d < R; ++d) {
+#pragma unroll
+    for (int p = 0; p < (1 << d); ++p) t[(1 << d) + p] = __ldg(w + (g << d) + p);
+  }
+}
+
+// R stages on the 2^R words x[k] = word base + k * stride of a group: stage
+// d pairs k and k + 2^(R-1-d) with twiddle t[2^d + (k >> (R - d))].
+template <int R>
+__device__ __forceinline__ void fwd_radix(u64 (&x)[1 << R], const u64 (&t)[1 << R],
+                                          const u64 (&ts)[1 << R], u64 q) {
+  const u64 two_q = 2 * q;
+#pragma unroll
+  for (int d = 0; d < R; ++d) {
+    const int half = 1 << (R - 1 - d);
+#pragma unroll
+    for (int k = 0; k < (1 << R); ++k) {
+      if (k & half) continue;
+      const int i = (1 << d) + (k >> (R - d));
+      ct_butterfly(x[k], x[k + half], t[i], ts[i], q, two_q);
+    }
+  }
+}
+
+template <int R>
+__device__ __forceinline__ void bwd_radix(u64 (&x)[1 << R], const u64 (&t)[1 << R],
+                                          const u64 (&ts)[1 << R], u64 q) {
+  const u64 two_q = 2 * q;
+#pragma unroll
+  for (int d = R - 1; d >= 0; --d) {
+    const int half = 1 << (R - 1 - d);
+#pragma unroll
+    for (int k = 0; k < (1 << R); ++k) {
+      if (k & half) continue;
+      const int i = (1 << d) + (k >> (R - d));
+      gs_butterfly(x[k], x[k + half], t[i], ts[i], q, two_q);
+    }
+  }
+}
+
+// The per-row state every pass needs.
+struct Row {
+  const u64* __restrict__ w;   // the limb's twiddles (psi or psi^-1), plain
+  const u64* __restrict__ ws;  // and their Shoup quotients
+  u64 q;
+  u64 ni, ni_shoup;            // N^-1 (inverse only)
+  uint32_t rank;               // CTA rank in the cluster
+};
+
+// ----------------------------------------------------------------------------
+// Local passes: stages S0 .. S0+R-1 of the transform of this CTA's 2^LOGNL
+// words (global stages log2(C) + S0 ..).  Group gid = (hi, lo) holds words
+// base + k 2^A, A = LOGNL - S0 - R, base = hi 2^(A+R) + lo; its twiddles
+// start at g = (C + rank) 2^S0 + hi, the table index of its first stage.
+// ----------------------------------------------------------------------------
+
+template <int LOGNL, int C, int S0, int R, bool FWD, bool SCALE>
+__device__ __forceinline__ void local_pass(u64* a, const Row& r) {
+  constexpr int A = LOGNL - S0 - R;
+  constexpr int kGroups = 1 << (LOGNL - R);
+  constexpr int T = threads_for(LOGNL);
+#pragma unroll 1
+  for (int gid = threadIdx.x; gid < kGroups; gid += T) {
+    const uint32_t hi = static_cast<uint32_t>(gid) >> A;
+    const uint32_t lo = static_cast<uint32_t>(gid) & ((1u << A) - 1);
+    u64* p = a + phys((hi << (A + R)) | lo);
+    u64 x[1 << R], t[1 << R], ts[1 << R];
+#pragma unroll
+    for (int k = 0; k < (1 << R); ++k) x[k] = p[phys(k << A)];
+    const uint32_t g = ((C + r.rank) << S0) + hi;
+    load_twiddles<R>(t, r.w, g);
+    load_twiddles<R>(ts, r.ws, g);
+    if constexpr (FWD) {
+      fwd_radix<R>(x, t, ts, r.q);
+    } else {
+      bwd_radix<R>(x, t, ts, r.q);
+    }
+    if constexpr (SCALE) {
+#pragma unroll
+      for (int k = 0; k < (1 << R); ++k) x[k] = shoup_mul(x[k], r.ni, r.ni_shoup, r.q);
+    }
+#pragma unroll
+    for (int k = 0; k < (1 << R); ++k) p[phys(k << A)] = x[k];
+  }
+}
+
+// Forward local passes from local stage S0 on, each closed by a barrier.
+template <int LOGNL, int C, int S0 = 0>
+__device__ __forceinline__ void fwd_local(u64* a, const Row& r) {
+  if constexpr (S0 < LOGNL) {
+    constexpr int R = pass_from(LOGNL, S0);
+    local_pass<LOGNL, C, S0, R, true, false>(a, r);
+    __syncthreads();
+    fwd_local<LOGNL, C, S0 + R>(a, r);
+  }
+}
+
+// Inverse local passes, last stage first, down to local stage 0.  Without a
+// cluster the pass holding stage 0 also applies N^-1.
+template <int LOGNL, int C, int END = LOGNL>
+__device__ __forceinline__ void bwd_local(u64* a, const Row& r) {
+  if constexpr (END > 0) {
+    constexpr int R = pass_to(LOGNL, END);
+    local_pass<LOGNL, C, END - R, R, false, C == 1 && END == R>(a, r);
+    __syncthreads();
+    bwd_local<LOGNL, C, END - R>(a, r);
+  }
+}
+
+// ----------------------------------------------------------------------------
+// The radix-C pass across the cluster: global stages 0 .. log2(C)-1 on the
+// words b + k N/C, k < C, for this CTA's N/C^2 bases b.  Word k lies at b in
+// CTA k's chunk (part[k], its shared memory mapped into this CTA's).
+// ----------------------------------------------------------------------------
+
+// Forward (C > 1), from device memory (`src` is the row) to the chunks.
+template <int LOGNL, int C>
+__device__ __forceinline__ void fwd_cross(u64* const (&part)[C], const u64* __restrict__ src,
+                                          const Row& r) {
+  constexpr int LC = log2i(C);
+  constexpr int NL = 1 << LOGNL;
+  constexpr int T = threads_for(LOGNL);
+  u64 t[C], ts[C];
+  load_twiddles<LC>(t, r.w, 1);
+  load_twiddles<LC>(ts, r.ws, 1);
+  const uint32_t first = r.rank * (NL / C);
+#pragma unroll 1
+  for (uint32_t b = first + threadIdx.x; b < first + NL / C; b += T) {
+    u64 x[C];
+    const uint32_t pb = phys(b);
+#pragma unroll
+    for (int k = 0; k < C; ++k) x[k] = __ldg(src + b + k * NL);
+    fwd_radix<LC>(x, t, ts, r.q);
+#pragma unroll
+    for (int k = 0; k < C; ++k) part[k][pb] = x[k];
+  }
+}
+
+// Inverse, with N^-1, reduced to [0, q) into device memory (`dst` is the row).
+template <int LOGNL, int C>
+__device__ __forceinline__ void bwd_cross(u64* const (&part)[C], u64* __restrict__ dst,
+                                          const Row& r) {
+  constexpr int LC = log2i(C);
+  constexpr int NL = 1 << LOGNL;
+  constexpr int T = threads_for(LOGNL);
+  u64 t[C], ts[C];
+  load_twiddles<LC>(t, r.w, 1);
+  load_twiddles<LC>(ts, r.ws, 1);
+  const uint32_t first = r.rank * (NL / C);
+#pragma unroll 1
+  for (uint32_t b = first + threadIdx.x; b < first + NL / C; b += T) {
+    u64 x[C];
+    const uint32_t pb = phys(b);
+#pragma unroll
+    for (int k = 0; k < C; ++k) x[k] = part[k][pb];
+    bwd_radix<LC>(x, t, ts, r.q);
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      dst[b + k * NL] = csub(shoup_mul(x[k], r.ni, r.ni_shoup, r.q), r.q);
+    }
+  }
+}
+
+template <int C>
+__device__ __forceinline__ void cluster_sync() {
+  if constexpr (C > 1) {
+    cg::this_cluster().sync();
+  } else {
+    __syncthreads();
+  }
+}
+
+// ----------------------------------------------------------------------------
+// Kernels: one row of 2^LOGN words over a cluster of C CTAs (C = 1: one CTA).
+// ----------------------------------------------------------------------------
+
+template <int LOGN, int C>
+__device__ __forceinline__ Row row_state(const u64* w, const u64* ws, const u64* moduli,
+                                         int limbs, size_t row) {
+  const int limb = static_cast<int>(row % limbs);
+  Row r;
+  r.q = moduli[limb];
+  r.w = w + (static_cast<size_t>(limb) << LOGN);
+  r.ws = ws + (static_cast<size_t>(limb) << LOGN);
+  r.ni = r.ni_shoup = 0;
+  r.rank = 0;
+  if constexpr (C > 1) r.rank = cg::this_cluster().block_rank();
+  return r;
+}
+
+template <int C>
+__device__ __forceinline__ void map_parts(u64* (&part)[C], u64* a) {
+#pragma unroll
+  for (int k = 0; k < C; ++k) {
+    if constexpr (C > 1) {
+      part[k] = cg::this_cluster().map_shared_rank(a, k);
+    } else {
+      part[k] = a;
+    }
+  }
+}
+
+template <int LOGN, int C>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+ntt64_fwd_kernel(const u64* __restrict__ in, u64* __restrict__ out, const u64* __restrict__ psi,
+                 const u64* __restrict__ psi_shoup, const u64* __restrict__ moduli, int limbs) {
+  constexpr int LOGNL = LOGN - log2i(C);
+  constexpr int NL = 1 << LOGNL;
+  constexpr int T = threads_for(LOGNL);
+  extern __shared__ u64 a[];
+  const size_t row = blockIdx.x / C;
+  const Row r = row_state<LOGN, C>(psi, psi_shoup, moduli, limbs, row);
+  u64* part[C];
+  map_parts<C>(part, a);
+
+  if constexpr (C > 1) {
+    cg::this_cluster().sync();  // every CTA has started
+    fwd_cross<LOGNL, C>(part, in + (row << LOGN), r);
+  } else {
+    const u64* src = in + (row << LOGN);
+    for (int j = threadIdx.x; j < NL; j += T) a[phys(j)] = __ldg(src + j);
+  }
+  cluster_sync<C>();
+  fwd_local<LOGNL, C>(a, r);
+  const u64 two_q = 2 * r.q;
+  u64* dst = out + (row << LOGN) + r.rank * NL;
+  for (int j = threadIdx.x; j < NL; j += T) dst[j] = csub(csub(a[phys(j)], two_q), r.q);
+}
+
+template <int LOGN, int C>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+ntt64_bwd_kernel(const u64* __restrict__ in, u64* __restrict__ out, const u64* __restrict__ ipsi,
+                 const u64* __restrict__ ipsi_shoup, const u64* __restrict__ moduli,
+                 const u64* __restrict__ ninv, const u64* __restrict__ ninv_shoup, int limbs) {
+  constexpr int LOGNL = LOGN - log2i(C);
+  constexpr int NL = 1 << LOGNL;
+  constexpr int T = threads_for(LOGNL);
+  extern __shared__ u64 a[];
+  const size_t row = blockIdx.x / C;
+  Row r = row_state<LOGN, C>(ipsi, ipsi_shoup, moduli, limbs, row);
+  r.ni = ninv[row % limbs];
+  r.ni_shoup = ninv_shoup[row % limbs];
+  u64* part[C];
+  map_parts<C>(part, a);
+
+  const u64* src = in + (row << LOGN) + r.rank * NL;
+  for (int j = threadIdx.x; j < NL; j += T) a[phys(j)] = __ldg(src + j);
+  __syncthreads();
+  bwd_local<LOGNL, C>(a, r);
+  u64* dst = out + (row << LOGN);
+  if constexpr (C > 1) {
+    cluster_sync<C>();
+    bwd_cross<LOGNL, C>(part, dst, r);
+    cluster_sync<C>();   // the chunks are read by other CTAs until here
+  } else {
+    for (int j = threadIdx.x; j < NL; j += T) dst[j] = csub(a[phys(j)], r.q);
+  }
+}
+
+// ----------------------------------------------------------------------------
+// Launch.
+// ----------------------------------------------------------------------------
+
+using FwdKernel = void (*)(const u64*, u64*, const u64*, const u64*, const u64*, int);
+using BwdKernel = void (*)(const u64*, u64*, const u64*, const u64*, const u64*, const u64*,
+                           const u64*, int);
+
+// This library's kernels: the ones of N = 2^MFHE_NTT_LOGN, one a cluster
+// size whose chunk fits a CTA (ops/ntt64_cuda.py builds one library for
+// each N).
+template <int C>
+constexpr bool built() {
+  return MFHE_NTT_LOGN >= (C == 1 ? kMinLogN : kMinClusterLogN) &&
+         MFHE_NTT_LOGN - log2i(C) <= kMaxLocalLogN;
+}
+
+template <int C>
+FwdKernel fwd_kernel() {
+  if constexpr (built<C>()) {
+    return ntt64_fwd_kernel<MFHE_NTT_LOGN, C>;
+  } else {
+    return nullptr;
+  }
+}
+
+template <int C>
+BwdKernel bwd_kernel() {
+  if constexpr (built<C>()) {
+    return ntt64_bwd_kernel<MFHE_NTT_LOGN, C>;
+  } else {
+    return nullptr;
+  }
+}
+
+template <typename Kernel>
+Kernel pick(Kernel (*const by_c[4])(), int logn, int c) {
+  const int lc = log2i(c);
+  if (logn != MFHE_NTT_LOGN || c < 1 || c > 8 || (1 << lc) != c) return nullptr;
+  return by_c[lc]();
+}
+
+// Shared memory a kernel may use is raised above 48 KB once per kernel and
+// device, not at every launch.
+std::atomic<uint64_t> configured[2][4];
+
+cudaError_t configure(const void* kernel, bool fwd, int c, size_t smem, int dev) {
+  const uint64_t bit = 1ull << (dev & 63);
+  std::atomic<uint64_t>& done = configured[fwd][log2i(c)];
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return err;
+}
+
+template <typename Kernel, typename... Args>
+cudaError_t launch_on(Kernel kernel, bool fwd, int rows, int logn, int c, int dev,
+                      void* stream, Args... args) {
+  const int lognl = logn - log2i(c);
+  const size_t smem = smem_for(lognl);
+  cudaError_t err = configure(reinterpret_cast<const void*>(kernel), fwd, c, smem, dev);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(rows) * c, 1, 1);
+  cfg.blockDim = dim3(threads_for(lognl), 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = c;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = c > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// Launch on device `dev` (the calling thread's device is switched to it for
+// the launch and back) and `stream`, a stream of that device.
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, bool fwd, int rows, int logn, int c, int dev, void* stream,
+           Args... args) {
+  if (kernel == nullptr || rows < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows == 0) return 0;
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err == cudaSuccess && prev != dev) err = cudaSetDevice(dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = launch_on(kernel, fwd, rows, logn, c, dev, stream, args...);
+  if (prev != dev) cudaSetDevice(prev);
+  return static_cast<int>(err);
+}
+
+}  // namespace
+
+// C entry points, bound with ctypes (matrix_fhe_tpu_torch/ops/ntt64_cuda.py).
+// Pointers are device pointers of int64 tensors whose words are read as
+// uint64; `rows` is the number of length-2^logn rows; `cluster` (1, 2, 4 or
+// 8) the CTAs a row is split over; `device` the CUDA device of the pointers
+// and `stream` a stream of it.  The return value is the CUDA error of the
+// launch (0 on success; cudaErrorInvalidValue for a size or cluster with no
+// kernel in this library: each library holds the kernels of one N).
+
+extern "C" int mfhe_ntt64_fwd(const void* in, void* out, const void* psi, const void* psi_shoup,
+                              const void* moduli, int rows, int limbs, int logn, int cluster,
+                              int device, void* stream) {
+  FwdKernel (*const by_c[4])() = {fwd_kernel<1>, fwd_kernel<2>, fwd_kernel<4>, fwd_kernel<8>};
+  return launch(pick(by_c, logn, cluster), true, rows, logn, cluster, device, stream,
+                static_cast<const u64*>(in), static_cast<u64*>(out),
+                static_cast<const u64*>(psi), static_cast<const u64*>(psi_shoup),
+                static_cast<const u64*>(moduli), limbs);
+}
+
+extern "C" int mfhe_ntt64_bwd(const void* in, void* out, const void* ipsi,
+                              const void* ipsi_shoup, const void* moduli, const void* ninv,
+                              const void* ninv_shoup, int rows, int limbs, int logn, int cluster,
+                              int device, void* stream) {
+  BwdKernel (*const by_c[4])() = {bwd_kernel<1>, bwd_kernel<2>, bwd_kernel<4>, bwd_kernel<8>};
+  return launch(pick(by_c, logn, cluster), false, rows, logn, cluster, device, stream,
+                static_cast<const u64*>(in), static_cast<u64*>(out),
+                static_cast<const u64*>(ipsi), static_cast<const u64*>(ipsi_shoup),
+                static_cast<const u64*>(moduli), static_cast<const u64*>(ninv),
+                static_cast<const u64*>(ninv_shoup), limbs);
+}

@@ -1,8 +1,9 @@
 """Fast-path CKKS bootstrapping: the full pipeline on int32 kernels.
 
-Counterpart of the fast part of ``matrix_fhe_tpu/fast/fboot.py`` (the wide
-presets and ``make_wide_bootstrapper`` belong to the wide path, ROADMAP A7).
-The bootstrap circuit (``circuits/ckks/bootstrapping.py``, the reference's
+Counterpart of ``matrix_fhe_tpu/fast/fboot.py``: the fast presets and
+``make_fast_bootstrapper`` (int32, B1), and the wide presets and
+``make_wide_bootstrapper`` (64-bit words over 41-61-bit primes, B4; at the
+end of this module).  The bootstrap circuit (``circuits/ckks/bootstrapping.py``, the reference's
 circuits/ckks/bootstrapping/evaluator.go:548-795) programs
 against the evaluator interface, so the whole pipeline — ScaleDown, ModUp,
 CoeffsToSlots, EvalMod, SlotsToCoeffs, META-BTS — runs on the int32 fast
@@ -155,3 +156,88 @@ def _with_fast_moduli(lit: btp.ParametersLiteral) -> btp.ParametersLiteral:
 
 
 FAST_N14 = fast_parameters_literal(14)
+
+
+# -- wide-path (41-61-bit) bootstrapping --------------------------------------
+# Reference-grade chains (default_parameters.go:25-40 shapes): 45-bit
+# default scale and 55-bit q0 / mod1 / C2S moduli, or the reference's true
+# widths (60-bit q0 and mod1, 61-bit P, 58-bit C2S).  45-bit primes are
+# plentiful at every degree (spacing 2N << 2^45), so these presets reach
+# logN 15-16, where the < 2^23 pool runs dry.  The port's words stop at
+# 2^61 (ops/wide.py); every prime these presets pick at logN 6-16 is below.
+
+def check_wide_chain(params) -> None:
+    from matrix_fhe_tpu_torch.ops import wide
+    for q in list(params.q) + list(params.p or ()):
+        if not wide.MIN_WIDE_MODULUS <= q < wide.MAX_WIDE_MODULUS:
+            raise ValueError(
+                f"modulus {q} outside [2^41, 2^61): chain is not "
+                f"wide-path compatible (use a wide_parameters_literal preset)")
+
+
+def wide_parameters_literal(log_n: int, residual_levels: int = 3,
+                            sparse_weight: int = 32) -> btp.ParametersLiteral:
+    """A wide-path bootstrapping literal for degree 2^log_n: 55-bit q0,
+    2^45 default scale, message ratio 2^8, CosDiscrete degree 30 / K=16
+    with 3 double-angle rounds (default_parameters.go:25-40's shape)."""
+    return btp.ParametersLiteral(
+        log_n=log_n,
+        residual_log_q=(55,) + (45,) * (residual_levels - 1),
+        log_p=(55, 55),
+        log_slots=None,
+        c2s_log_q=(55, 55, 55),
+        s2c_log_q=(45, 45, 45),
+        mod1_log_q=55,
+        mod1_type="cos_discrete",
+        mod1_k=16,
+        mod1_degree=30,
+        mod1_double_angle=3,
+        log_message_ratio=8,
+        log_default_scale=45,
+        ephemeral_secret_weight=sparse_weight,
+    )
+
+
+def wide61_parameters_literal(log_n: int, residual_levels: int = 5,
+                              sparse_weight: int = 32,
+                              num_p: int = 2) -> btp.ParametersLiteral:
+    """The reference's N16QP1547H192H32 widths (default_parameters.go:45-65):
+    60-bit q0 + 45-bit residual primes, 58-bit CoeffsToSlots, 42-bit
+    SlotsToCoeffs, 60-bit EvalMod, 61-bit P.  ``num_p`` sets the hybrid
+    key-switching digit size."""
+    return btp.ParametersLiteral(
+        log_n=log_n,
+        residual_log_q=(60,) + (45,) * (residual_levels - 1),
+        log_p=(61,) * num_p,
+        log_slots=None,
+        c2s_log_q=(58, 58, 58),
+        s2c_log_q=(42, 42, 42),
+        mod1_log_q=60,
+        mod1_type="cos_discrete",
+        mod1_k=16,
+        mod1_degree=30,
+        mod1_double_angle=3,
+        log_message_ratio=8,
+        log_default_scale=45,
+        ephemeral_secret_weight=sparse_weight,
+    )
+
+
+def make_wide_bootstrapper(p: btp.Parameters, evk: btp.EvaluationKeys) -> btp.Evaluator:
+    """Bootstrapping evaluator whose pipeline runs on the wide path
+    (``fast/weval.py``'s ``WideEvaluator``).  ``evk`` are u64-path keys,
+    converted once; ciphertexts in and out hold the u64 path's words
+    (``weval.ct_to_wide`` / ``ct_to_u64`` copy them).  The DFT matrices'
+    plain-domain forms and the encapsulation keys' are made here, so that a
+    bootstrap makes none."""
+    from matrix_fhe_tpu_torch.fast import weval
+    params = p.params
+    check_wide_chain(params)
+    wev = weval.make_wide_evaluator(params, evk.rlk, evk.gks)
+    bts = btp.Evaluator(p, evk, ev=wev, enc=weval.WideEncoder(params))
+    for m in list(bts.c2s_matrix.matrices) + list(bts.s2c_matrix.matrices):
+        wev.wide_lintrans(m)
+    for e in (evk.evk_dense_to_sparse, evk.evk_sparse_to_dense):
+        if e is not None:
+            wev._evk_wide(e, params.max_level)
+    return bts

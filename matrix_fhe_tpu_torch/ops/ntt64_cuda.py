@@ -1,0 +1,160 @@
+"""The negacyclic NTT of 64-bit words on the card: kernel B4 (``csrc/ntt64.cu``).
+
+Counterpart of ``matrix_fhe_tpu/ops/wide_ntt.py``'s ``ntt_fwd``/``ntt_bwd``
+(its ``_transform``, XLA int8 matmuls over 7 digit planes of the TPU's
+centered int32 pairs) and of the u64 ring's NTT of the JAX package: both
+compute the same function, the negacyclic NTT mod q of the reference
+(ring/ntt.go) with the output in bit-reversed order.  Here a residue is one
+64-bit word held in int64, canonical in [0, q), q < 2^61
+(``ops/modmath.py``), and the transform takes the tables of an
+``ops/rings.py:Ring`` (its plain psi powers and their Shoup quotients):
+
+  * a CUDA tensor goes through the hand-written kernel; if the kernel cannot
+    be built or launched, the call raises;
+  * a CPU tensor goes through the plain version, ``ntt_fwd_plain`` /
+    ``ntt_bwd_plain`` (``rings._ntt_standard`` / ``_intt_standard``, the
+    torch-op butterfly NTT over the ring's Montgomery tables).
+
+``Ring.ntt``/``intt`` (and so the wide ring's, the keys', the encoder's and
+the u64 evaluator's) call ``ntt_fwd``/``ntt_bwd``.  The kernel is built by
+``ops/ntt_cuda.py``'s helper into ``matrix_fhe_tpu_torch/_build/``, one
+library for each N (2^4 to 2^16), each at the first use of its N; nothing
+is built or loaded when this module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from matrix_fhe_tpu_torch.ops import ntt_cuda
+
+SOURCE = ntt_cuda._PKG / "csrc" / "ntt64.cu"
+MIN_N = 1 << 4
+MAX_N = 1 << 16
+# A CTA holds at most 2^14 words of a row (132 KB padded, csrc/ntt64.cu:
+# kMaxLocalLogN): N = 2^15 needs a cluster of 2, N = 2^16 one of 4.
+MAX_LOCAL_N = 1 << 14
+MAX_CLUSTER = 8
+MIN_CLUSTER_N = 1 << 10
+MIN_SPLIT_N = 1 << 13
+LOGNS = range(MIN_N.bit_length() - 1, MAX_N.bit_length())
+
+# Kernel launches since the counts were last reset, by direction.
+fwd_launches = 0
+bwd_launches = 0
+
+
+def ntt_fwd_plain(x: torch.Tensor, ring) -> torch.Tensor:
+    """The plain version of the forward transform (any device)."""
+    from matrix_fhe_tpu_torch.ops.rings import _ntt_standard
+    return _ntt_standard(x, ring.roots_fwd, ring.moduli, ring.qinv)
+
+
+def ntt_bwd_plain(x: torch.Tensor, ring) -> torch.Tensor:
+    """The plain version of the inverse transform (any device)."""
+    from matrix_fhe_tpu_torch.ops.rings import _intt_standard
+    return _intt_standard(x, ring.roots_bwd, ring.ninv, ring.moduli, ring.qinv)
+
+
+def ntt_fwd(x: torch.Tensor, ring) -> torch.Tensor:
+    global fwd_launches
+    check_input(x, ring)
+    if not x.is_cuda:
+        return ntt_fwd_plain(x, ring)
+    out = launch(x, ring, fwd=True)
+    fwd_launches += 1
+    return out
+
+
+def ntt_bwd(x: torch.Tensor, ring) -> torch.Tensor:
+    global bwd_launches
+    check_input(x, ring)
+    if not x.is_cuda:
+        return ntt_bwd_plain(x, ring)
+    out = launch(x, ring, fwd=False)
+    bwd_launches += 1
+    return out
+
+
+def check_input(x: torch.Tensor, ring) -> None:
+    """Raise unless ``x`` is int64 [..., L, N] for the ring's L limbs of
+    degree N, on the CPU or on a CUDA device."""
+    n, L = ring.n, ring.num_limbs
+    if x.dtype != torch.int64:
+        raise TypeError(f"the u64 NTT takes int64 words, got {x.dtype}")
+    if x.dim() < 2 or x.shape[-1] != n or x.shape[-2] != L:
+        raise ValueError(f"shape {tuple(x.shape)} is not [..., {L}, {n}]")
+    if not x.is_cuda and x.device.type != "cpu":
+        raise ValueError(f"no NTT for device {x.device}")
+
+
+def geometry(rows: int, n: int, sms: int) -> int:
+    """CTAs a row of N words is split over (the cluster size C) in a launch
+    of ``rows`` rows on a card of ``sms`` SMs.  B1's rule
+    (``ntt_cuda.geometry`` for one transform) under the one constraint of
+    64-bit words, that a CTA holds at most 2^14 of them:
+      * C = 1 below N = 2^13;
+      * C = 8 for a launch of few rows (rows * 8 <= 3 * sms) and from
+        N = 2^14 on;
+      * otherwise the smallest power of two C <= 8 with rows * C >= sms, and
+        at least N / 2^14."""
+    if n > MAX_N:
+        raise NotImplementedError(f"N={n}: the u64 NTT kernel takes N <= {MAX_N}")
+    c = max(1, n // MAX_LOCAL_N)
+    if n < MIN_SPLIT_N:
+        return c
+    if rows * MAX_CLUSTER <= 3 * sms or n >= 1 << 14:
+        return MAX_CLUSTER
+    while c < MAX_CLUSTER and rows * c < sms:
+        c *= 2
+    return c
+
+
+@functools.lru_cache(maxsize=None)
+def library(logn: int) -> ctypes.CDLL:
+    """The kernel library of N = 2^logn, built (that size alone) at first use."""
+    if logn not in LOGNS:
+        raise NotImplementedError(f"no u64 NTT kernel for N = 2^{logn}")
+    ntt_cuda.build([logn], SOURCE)
+    lib = ctypes.CDLL(str(ntt_cuda.library_path(logn, SOURCE)))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.mfhe_ntt64_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+    lib.mfhe_ntt64_bwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.mfhe_ntt64_fwd.restype = lib.mfhe_ntt64_bwd.restype = i
+    return lib
+
+
+def launch(x: torch.Tensor, ring, fwd: bool, cluster: int | None = None) -> torch.Tensor:
+    """Launch the kernel (``mfhe_ntt64_fwd``/``_bwd``) on a contiguous CUDA
+    tensor that passed ``check_input``, each row split over ``cluster``
+    CTAs (by default ``geometry``'s choice).  The caller counts the launch."""
+    n, L = ring.n, ring.num_limbs
+    if not x.is_contiguous():
+        raise ValueError("the u64 NTT kernel takes a contiguous tensor")
+    rows = x.numel() // n
+    dev = x.get_device()
+    if cluster is None:
+        cluster = geometry(rows, n, ntt_cuda._sm_count(dev))
+    if fwd:
+        tabs = (ring.psi, ring.psi_shoup, ring.moduli)
+    else:
+        tabs = (ring.ipsi, ring.ipsi_shoup, ring.moduli, ring.ninv_plain, ring.ninv_shoup)
+    for t in tabs:
+        if t.get_device() != dev or not t.is_contiguous() or t.dtype != torch.int64:
+            raise ValueError(f"u64 NTT tables must be contiguous int64 on {x.device}, "
+                             f"found {t.dtype} on {t.device}")
+    out = torch.empty_like(x)
+    if rows == 0:
+        return out
+    logn = n.bit_length() - 1
+    lib = library(logn)
+    entry = lib.mfhe_ntt64_fwd if fwd else lib.mfhe_ntt64_bwd
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    err = entry(x.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in tabs),
+                rows, L, logn, cluster, dev, stream)
+    if err:
+        raise RuntimeError(f"u64 NTT kernel launch failed: CUDA error {err}")
+    return out

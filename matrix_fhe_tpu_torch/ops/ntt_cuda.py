@@ -185,35 +185,48 @@ def _nvcc() -> str:
 LOGNS = range(4, MAX_KERNEL_N.bit_length())
 
 
-def library_path(logn: int) -> Path:
-    key = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"ntt{logn}-{key.hexdigest()[:16]}.so"
+def library_path(logn: int, source: Path = SOURCE) -> Path:
+    """The library of ``source`` (this module's ``csrc/ntt.cu`` or another
+    kernel source built the same way, one library for each N) for
+    N = 2^logn, named by a hash of the source and the flags."""
+    key = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{source.stem}_{logn}-{key.hexdigest()[:16]}.so"
 
 
-def build(logns=LOGNS) -> list[int]:
-    """Build the libraries of the sizes ``logns`` (log2 N) that are missing
-    (once per source hash), one ``nvcc`` for each N, all started together.
-    The compiler's output, ptxas's register and spill report included, is
-    kept beside each library as ``<name>.log``.  Returns the sizes built."""
-    todo = [logn for logn in logns if not library_path(logn).exists()]
+def build(logns=LOGNS, source: Path = SOURCE) -> list[int]:
+    """Build the libraries of ``source`` for the sizes ``logns`` (log2 N)
+    that are missing; ``build_all`` with one source.  Returns the sizes
+    built."""
+    return [logn for _, logn in build_all([(source, logn) for logn in logns])]
+
+
+def build_all(jobs) -> list[tuple[Path, int]]:
+    """Build the libraries of the (source, log2 N) pairs ``jobs`` that are
+    missing (once per source hash), one ``nvcc`` for each, all started
+    together, with ``-DMFHE_NTT_LOGN=<log2 N>``.  The compiler's output,
+    ptxas's register and spill report included, is kept beside each library
+    as ``<name>.log``.  Returns the pairs built."""
+    todo = [(src, logn) for src, logn in jobs if not library_path(logn, src).exists()]
     if not todo:
         return todo
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         procs = {}
-        for logn in todo:
-            so = library_path(logn)
+        for src, logn in todo:
+            so = library_path(logn, src)
             with open(so.with_suffix(".log"), "w") as log:
-                procs[logn] = subprocess.Popen(
+                procs[src, logn] = subprocess.Popen(
                     [_nvcc(), *NVCC_FLAGS, f"-DMFHE_NTT_LOGN={logn}",
-                     "-o", str(Path(tmp) / so.name), str(SOURCE)],
+                     "-o", str(Path(tmp) / so.name), str(src)],
                     stdout=log, stderr=subprocess.STDOUT)
-        failed = [logn for logn, proc in procs.items() if proc.wait() != 0]
+        failed = [job for job, proc in procs.items() if proc.wait() != 0]
         if failed:
-            log = library_path(failed[0]).with_suffix(".log").read_text()
-            raise RuntimeError(f"nvcc failed for log2 N in {failed}:\n{log}")
-        for logn in todo:
-            os.replace(Path(tmp) / library_path(logn).name, library_path(logn))
+            src, logn = failed[0]
+            log = library_path(logn, src).with_suffix(".log").read_text()
+            raise RuntimeError(f"nvcc failed for {[(s.name, n) for s, n in failed]}:\n{log}")
+        for src, logn in todo:
+            so = library_path(logn, src)
+            os.replace(Path(tmp) / so.name, so)
     return todo
 
 

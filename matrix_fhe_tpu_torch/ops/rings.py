@@ -13,9 +13,12 @@ Z_Q[X]/(X^N + 1), N a power of two:
     outputs equal the reference's after its final reduction, and the JAX
     package's bit for bit.
 
-This NTT is the parity oracle of the setup path: the keys, the encoder and
-the u64 evaluators run on it, and the int32 fast path (``fast/fring.py``,
-kernel B1) is held against it.  It is plain torch on every device.
+These torch-op transforms are the parity oracle of the setup path and the
+plain version of kernel B4 (``ops/ntt64_cuda.py``, ``csrc/ntt64.cu``):
+``Ring.ntt``/``intt`` run them on a CPU tensor and launch B4 on a CUDA
+tensor, with the plain psi powers and Shoup quotients the ring also holds.
+The keys, the encoder, the u64 and wide evaluators run on them, and the
+int32 fast path (``fast/fring.py``, kernel B1) is held against them.
 
 The conjugate-invariant ring and the 3N "matrix" ring of the JAX package are
 not ported yet (ROADMAP A8): ``new_ring`` refuses them.
@@ -29,6 +32,7 @@ import numpy as np
 import torch
 
 from matrix_fhe_tpu_torch.ops import modmath as mm
+from matrix_fhe_tpu_torch.ops import ntt64_cuda
 from matrix_fhe_tpu_torch.ops.tables import bit_reverse
 from matrix_fhe_tpu_torch.utils import primes as pr
 from matrix_fhe_tpu_torch.utils.device import resolve_device
@@ -57,19 +61,22 @@ def _gen_subring_tables(nth_root: int, q: int) -> dict:
     psi_inv = pow(g, (q - 1) - (q - 1) // nth_root, q)
     half = nth_root >> 1
     log_half = half.bit_length() - 1
-    roots_fwd = [0] * half
-    roots_bwd = [0] * half
-    # roots_fwd[bitrev(j)] = psi^j * 2^64 mod q (ring/subring.go:198-211)
+    out = {k: [0] * half for k in ("roots_fwd", "roots_bwd", "psi", "psi_shoup",
+                                   "ipsi", "ipsi_shoup")}
+    # roots_fwd[bitrev(j)] = psi^j * 2^64 mod q (ring/subring.go:198-211);
+    # B4 takes psi^j and its Shoup quotient floor(psi^j * 2^64 / q)
     pw_f, pw_b = 1, 1
     for j in range(half):
         rj = bit_reverse(j, log_half)
-        roots_fwd[rj] = (pw_f << 64) % q
-        roots_bwd[rj] = (pw_b << 64) % q
+        out["psi_shoup"][rj], out["roots_fwd"][rj] = divmod(pw_f << 64, q)
+        out["ipsi_shoup"][rj], out["roots_bwd"][rj] = divmod(pw_b << 64, q)
+        out["psi"][rj], out["ipsi"][rj] = pw_f, pw_b
         pw_f = pw_f * psi % q
         pw_b = pw_b * psi_inv % q
+    ninv = pow(half, q - 2, q)
     return {"qinv": mm.gen_mred_constant(q), "bhi": bhi, "blo": blo,
-            "ninv": (pow(half, q - 2, q) << 64) % q,
-            "roots_fwd": roots_fwd, "roots_bwd": roots_bwd}
+            "ninv": (ninv << 64) % q, "ninv_plain": ninv,
+            "ninv_shoup": (ninv << 64) // q, **out}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,6 +100,14 @@ class Ring:
     # rescale[j-1, i] = MForm(qi - qj^-1 mod qi) for i < j, zero-padded
     # (ring/ring.go:363-380 rewRescaleConstants)
     rescale: torch.Tensor
+    # B4's tables: plain psi powers (bit-reversed, as roots_*), their Shoup
+    # quotients floor(w * 2^64 / q) (the bits of a uint64), N^-1 and its quotient
+    psi: torch.Tensor         # int64 [L, N]
+    psi_shoup: torch.Tensor   # int64 [L, N]
+    ipsi: torch.Tensor        # int64 [L, N]
+    ipsi_shoup: torch.Tensor  # int64 [L, N]
+    ninv_plain: torch.Tensor  # int64 [L]
+    ninv_shoup: torch.Tensor  # int64 [L]
 
     @property
     def device(self) -> torch.device:
@@ -121,7 +136,9 @@ class Ring:
             self, moduli_tuple=self.moduli_tuple[s], moduli=self.moduli[s],
             qinv=self.qinv[s], bhi=self.bhi[s], blo=self.blo[s],
             ninv=self.ninv[s], roots_fwd=self.roots_fwd[s],
-            roots_bwd=self.roots_bwd[s])
+            roots_bwd=self.roots_bwd[s], psi=self.psi[s], psi_shoup=self.psi_shoup[s],
+            ipsi=self.ipsi[s], ipsi_shoup=self.ipsi_shoup[s],
+            ninv_plain=self.ninv_plain[s], ninv_shoup=self.ninv_shoup[s])
 
     def modulus_at_level(self, level: int | None = None) -> int:
         """Product of moduli up to ``level`` (ring/ring.go ModulusAtLevel)."""
@@ -187,12 +204,12 @@ class Ring:
             scalar = scalar.astype(np.int64)  # residues < 2^61
         return torch.as_tensor(scalar, dtype=torch.int64, device=self.device)
 
-    # -- NTT ------------------------------------------------------------------
+    # -- NTT: kernel B4 on a CUDA tensor, the torch ops below on the CPU ------
     def ntt(self, p: torch.Tensor) -> torch.Tensor:
-        return _ntt_standard(p, self.roots_fwd, self.moduli, self.qinv)
+        return ntt64_cuda.ntt_fwd(p.contiguous(), self)
 
     def intt(self, p: torch.Tensor) -> torch.Tensor:
-        return _intt_standard(p, self.roots_bwd, self.ninv, self.moduli, self.qinv)
+        return ntt64_cuda.ntt_bwd(p.contiguous(), self)
 
 
 def new_ring(n: int, moduli: list[int], ring_type: str = STANDARD,
@@ -224,13 +241,20 @@ def new_ring(n: int, moduli: list[int], ring_type: str = STANDARD,
     def col(key):
         return _words([t[key] for t in tabs], device)
 
+    def rows(key):  # [L, N] words (the Shoup quotients may pass 2^63)
+        return torch.tensor([[mm.signed(v) for v in t[key]] for t in tabs],
+                            dtype=torch.int64, device=device)
+
     return Ring(
         n=n, nth_root=nth_root, ring_type=STANDARD, moduli_tuple=tuple(moduli),
         moduli=_residues(moduli, device), qinv=col("qinv"), bhi=col("bhi"),
         blo=col("blo"), ninv=col("ninv"),
         roots_fwd=_residues([t["roots_fwd"] for t in tabs], device),
         roots_bwd=_residues([t["roots_bwd"] for t in tabs], device),
-        rescale=_residues(rescale, device))
+        rescale=_residues(rescale, device),
+        psi=_residues([t["psi"] for t in tabs], device), psi_shoup=rows("psi_shoup"),
+        ipsi=_residues([t["ipsi"] for t in tabs], device), ipsi_shoup=rows("ipsi_shoup"),
+        ninv_plain=col("ninv_plain"), ninv_shoup=col("ninv_shoup"))
 
 
 def _residues(values, device) -> torch.Tensor:

@@ -3,11 +3,13 @@ unless asked for another device.  Without a card, a call that names no
 device raises instead of building on the CPU; with one, it builds on the
 card.  Decided inside the test, not at import."""
 
+from types import SimpleNamespace
+
 import pytest
 import torch
 
 from matrix_fhe_tpu_torch import carry, rlwe
-from matrix_fhe_tpu_torch.fast import fckks, fring, frns
+from matrix_fhe_tpu_torch.fast import fckks, fring, frns, wckks, wring, wrns
 from matrix_fhe_tpu_torch.ops import ntt_cuda, ntt_w22, rings, rns_tools
 from matrix_fhe_tpu_torch.rlwe import params as rparams
 from matrix_fhe_tpu_torch.schemes import ckks
@@ -16,6 +18,7 @@ N = 1 << 5
 Q = ntt_cuda.find_v2_primes(N, 4)
 Q, P = Q[:2], Q[2:]
 W22 = ntt_w22.find_w22_primes(N, 2)
+WIDE = list(wckks.PN14QP438_Q[:2]), list(wckks.PN14QP438_P)
 
 
 def _zeros(*shape):
@@ -46,6 +49,13 @@ CONSTRUCTORS = {
     "ckks.new_parameters": lambda: ckks.new_parameters(
         ckks.CKKSParametersLiteral(logn=5, q=tuple(Q), p=tuple(P))).ring_q.moduli,
     "carry.carry": lambda: carry.carry(_zeros(2, N).astype("uint64")),
+    "wring.new_wide_ring": lambda: wring.new_wide_ring(N, WIDE[0]).psi,
+    "wrns.gen_wide_decomposer": lambda: wrns.gen_wide_decomposer(*WIDE).mucs[0].src_q_f64,
+    "wckks.context_from_arrays": lambda: wckks.context_from_arrays(
+        N, *WIDE, _zeros(1, 2, 2, N), _zeros(1, 2, 2, N)).rlk_q,
+    "wckks.make_synthetic_context": lambda: wckks.make_synthetic_context(5, 2, 2)[1][0],
+    "carry.carry_wide": lambda: carry.carry_wide(_zeros(2, 2, N), SimpleNamespace(
+        q=WIDE[0], p=WIDE[1])),
 }
 
 

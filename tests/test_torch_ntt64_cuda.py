@@ -1,0 +1,118 @@
+"""PyTorch port, kernel B4 (csrc/ntt64.cu), the NTT of 64-bit words, on the
+card, through ``ops/ntt64_cuda.py`` and the rings that launch it.
+
+Each test holds the kernel bit-exact against its plain version
+(``ntt64_cuda.ntt_fwd_plain``/``ntt_bwd_plain``) run on CPU copies of the
+same tensors.  Without a GPU every test here skips; this file imports no
+jax, so on a machine with a card and no jax it runs on its own:
+
+    python -m pytest tests/test_torch_ntt64_cuda.py -q -p no:cacheprovider \\
+        --noconftest -o addopts=""
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from matrix_fhe_tpu_torch.fast import wring
+from matrix_fhe_tpu_torch.ops import ntt64_cuda, rings
+from matrix_fhe_tpu_torch.utils import primes as pr
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("the CUDA u64 NTT kernel needs a GPU")
+    return torch.device("cuda")
+
+
+def _moduli(n, bits=(45, 55, 61)):
+    out = []
+    for b in bits:
+        g = pr.NTTFriendlyPrimesGenerator(b, 2 * n)
+        out.append(g.next_downstream_prime() if b == 61 else g.next_alternating_prime())
+    return out
+
+
+def _operands(lead, moduli, n, seed):
+    rng = np.random.default_rng(seed)
+    x = np.stack([rng.integers(0, q, lead + (n,), dtype=np.int64) for q in moduli], axis=-2)
+    x.reshape(-1, n)[0, :2] = [moduli[0] - 1, 0]
+    return torch.from_numpy(x)
+
+
+def _check(x, ring_cpu, ring_dev, cluster=None):
+    dev = ring_dev.device
+    if cluster is None:
+        f, b = ring_dev.ntt(x.to(dev)), ring_dev.intt(x.to(dev))
+    else:
+        f = ntt64_cuda.launch(x.to(dev), ring_dev, True, cluster)
+        b = ntt64_cuda.launch(x.to(dev), ring_dev, False, cluster)
+    back = ring_dev.intt(f)
+    torch.cuda.synchronize()
+    assert f.dtype == torch.int64 and f.shape == x.shape
+    assert torch.equal(f.cpu(), ntt64_cuda.ntt_fwd_plain(x, ring_cpu))
+    assert torch.equal(b.cpu(), ntt64_cuda.ntt_bwd_plain(x, ring_cpu))
+    assert torch.equal(back.cpu(), x)
+
+
+@pytest.mark.parametrize("logn", range(4, 17))
+def test_kernel_matches_plain_every_size(cuda, logn):
+    n = 1 << logn
+    moduli = _moduli(n)
+    _check(_operands((2,), moduli, n, logn), rings.new_ring(n, moduli, device="cpu"),
+           rings.new_ring(n, moduli, device=cuda))
+
+
+@pytest.mark.parametrize("logn", [10, 13, 14, 15, 16])
+@pytest.mark.parametrize("c", [1, 2, 4, 8])
+def test_every_cluster_size(cuda, logn, c):
+    n = 1 << logn
+    if n // c > 1 << 14:
+        pytest.skip("a CTA holds at most 2^14 words")
+    moduli = _moduli(n)
+    _check(_operands((1,), moduli, n, c), rings.new_ring(n, moduli, device="cpu"),
+           rings.new_ring(n, moduli, device=cuda), cluster=c)
+
+
+@pytest.mark.parametrize("lead, limbs", [((), 9), ((4,), 9), ((2,), 7), ((1,), 21), ((6,), 17)])
+def test_wide_ring_step_shapes(cuda, lead, limbs):
+    """The wide ring at logN 14 and the shapes its step and bootstrap give
+    B4; each call counts one launch."""
+    n = 1 << 14
+    moduli = pr.NTTFriendlyPrimesGenerator(45, 2 * n).next_alternating_primes(limbs)
+    ring_dev = wring.new_wide_ring(n, moduli, device=cuda)
+    before = (ntt64_cuda.fwd_launches, ntt64_cuda.bwd_launches)
+    _check(_operands(lead, moduli, n, limbs), wring.new_wide_ring(n, moduli, device="cpu"),
+           ring_dev)
+    assert (ntt64_cuda.fwd_launches - before[0], ntt64_cuda.bwd_launches - before[1]) == (1, 2)
+
+
+def test_input_checks_and_refused_launches(cuda):
+    n = 1 << 15
+    moduli = _moduli(n)
+    ring = rings.new_ring(n, moduli, device=cuda)
+    x = _operands((1,), moduli, n, 0).to(cuda)
+    with pytest.raises(TypeError):
+        ntt64_cuda.ntt_fwd(x.to(torch.int32), ring)
+    with pytest.raises(ValueError):
+        ntt64_cuda.ntt_fwd(x[:, :2], ring)
+    with pytest.raises(ValueError):
+        ntt64_cuda.launch(x.transpose(-1, -2).contiguous().transpose(-1, -2), ring, True)
+    for c in (1, 3, 16):  # no kernel: 2^15 words do not fit one CTA; C a power of two <= 8
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            ntt64_cuda.launch(x, ring, True, c)
+
+
+def test_side_stream(cuda):
+    n = 1 << 14
+    moduli = _moduli(n)
+    ring_cpu, ring_dev = rings.new_ring(n, moduli, device="cpu"), rings.new_ring(n, moduli, device=cuda)
+    x = _operands((3,), moduli, n, 7)
+    s = torch.cuda.Stream()
+    xd = x.to(cuda)
+    torch.cuda.synchronize()
+    with torch.cuda.stream(s):
+        f = ring_dev.ntt(xd)
+    s.synchronize()
+    assert torch.equal(f.cpu(), ntt64_cuda.ntt_fwd_plain(x, ring_cpu))

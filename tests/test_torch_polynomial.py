@@ -36,7 +36,10 @@ _NAMES = {"poly": "circuits.polynomial", "bn": "utils.bignum", "ckks": "schemes.
           "lt": "circuits.lintrans", "ckks_lt": "circuits.ckks.lintrans",
           "btp": "circuits.ckks.bootstrapping", "fboot": "fast.fboot",
           "flintrans": "fast.flintrans", "fdft": "fast.fdft", "feval": "fast.feval", "fckks": "fast.fckks",
-          "rlwe_eval": "rlwe.evaluator", "dec": "rlwe.decryptor"}
+          "rlwe_eval": "rlwe.evaluator", "dec": "rlwe.decryptor",
+          "wide": "ops.wide", "wckks": "fast.wckks", "wrns": "fast.wrns", "weval": "fast.weval",
+          "minimax": "circuits.ckks.minimax", "comparison": "circuits.ckks.comparison",
+          "inverse": "circuits.ckks.inverse", "rlwe_keys": "rlwe.keys", "encryptor": "rlwe.encryptor"}
 
 
 def modules(root: str) -> SimpleNamespace:

@@ -1,6 +1,6 @@
 """Instructions a butterfly of the NTT kernels' passes, from the built SASS.
 
-    python tools/ntt_sass.py [--out PATH]
+    python tools/ntt_sass.py [--out PATH] [--b4]
 
 Builds (or loads) the port's kernel libraries (``csrc/ntt.cu``, one for each
 N, through ``ops/ntt_cuda.build()``), disassembles them with
@@ -17,6 +17,14 @@ instructions a product; the hot pass of a kernel is its body with the most
 products (R = 4, no N^-1: 32 butterflies), and its instructions a butterfly
 are the figure to hold against the 7 operations of a butterfly.  Registers
 and spills come from ptxas's report in the build log beside each library.
+
+``--b4``: the same for kernel B4 (``csrc/ntt64.cu``, ``ntt64_fwd_kernel``,
+``ntt64_bwd_kernel``).  Its 64-bit products compile to wide multiplies
+(``IMAD.WIDE.U32``), not ``IMAD.HI``, so a pass body is found by its
+shared-memory traffic instead: an innermost loop with as many 64-bit
+shared loads as stores, 2^R each, holds R 2^R / 2 butterflies (R <= 3);
+the hot pass is the body with the most butterflies (R = 3: 12), the longest
+of those (``hot_pass64``).
 The full disassembly goes to ``--out`` (by default beside the libraries, in
 ``matrix_fhe_tpu_torch/_build/``).  Needs the CUDA toolkit (``nvcc``,
 ``cuobjdump``); no GPU and no jax.
@@ -38,7 +46,7 @@ from matrix_fhe_tpu_torch.ops import ntt_cuda  # noqa: E402
 
 _FUNC = re.compile(r"^\s*Function : (\S+)")
 _INSTR = re.compile(r"^\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
-_KERNEL = re.compile(r"(ntt_(?:fwd|bwd)_kernel)ILi(\d+)ELi(\d+)E")
+_KERNEL = re.compile(r"(ntt(?:64)?_(?:fwd|bwd)_kernel)ILi(\d+)ELi(\d+)E")
 
 
 def _cuobjdump() -> str:
@@ -120,6 +128,20 @@ def hot_pass(instrs: list[tuple[int, str]]) -> tuple[int, int]:
     return len(best), sum(op.startswith("IMAD.HI") for op in best)
 
 
+def hot_pass64(instrs: list[tuple[int, str]]) -> tuple[int, int]:
+    """(instructions, butterflies) of B4's hot pass (see the module's
+    docstring); (0, 0) if the kernel has none."""
+    best = (0, 0)
+    for lo, hi in loops(instrs):
+        body = [opcode(t) for a, t in instrs if lo <= a <= hi]
+        words = sum(op.startswith("STS") for op in body)
+        if words < 4 or words != sum(op.startswith("LDS") for op in body):
+            continue
+        r = words.bit_length() - 1
+        best = max(best, (r * words // 2, len(body)))
+    return best[1], best[0]
+
+
 def ptxas_report(log: str) -> dict[str, dict[str, int]]:
     """kernel label -> registers and spill bytes, from ``nvcc -Xptxas -v``."""
     out: dict[str, dict[str, int]] = {}
@@ -136,33 +158,38 @@ def ptxas_report(log: str) -> dict[str, dict[str, int]]:
     return out
 
 
-def disassemble(logns=ntt_cuda.LOGNS) -> str:
-    """SASS of the libraries of the sizes ``logns``, built first if missing."""
-    ntt_cuda.build(logns)
+def disassemble(logns=ntt_cuda.LOGNS, source=ntt_cuda.SOURCE) -> str:
+    """SASS of the libraries of ``source`` for the sizes ``logns``, built
+    first if missing."""
+    ntt_cuda.build(logns, source)
     return "".join(
-        subprocess.run([_cuobjdump(), "-sass", str(ntt_cuda.library_path(logn))],
+        subprocess.run([_cuobjdump(), "-sass", str(ntt_cuda.library_path(logn, source))],
                        capture_output=True, text=True, check=True, timeout=300).stdout
         for logn in logns)
 
 
-def build_logs(logns=ntt_cuda.LOGNS) -> str:
-    return "".join(ntt_cuda.library_path(logn).with_suffix(".log").read_text()
+def build_logs(logns=ntt_cuda.LOGNS, source=ntt_cuda.SOURCE) -> str:
+    return "".join(ntt_cuda.library_path(logn, source).with_suffix(".log").read_text()
                    for logn in logns)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=str(ntt_cuda.BUILD_DIR / "ntt_sass.txt"))
+    ap.add_argument("--b4", action="store_true", help="kernel B4, csrc/ntt64.cu")
     args = ap.parse_args()
-    sass = disassemble()
+    from matrix_fhe_tpu_torch.ops import ntt64_cuda
+    source, logns = (ntt64_cuda.SOURCE, ntt64_cuda.LOGNS) if args.b4 else \
+        (ntt_cuda.SOURCE, ntt_cuda.LOGNS)
+    sass = disassemble(logns, source)
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(sass)
-    print(f"SASS of {ntt_cuda.library_path(14).name} and the other sizes -> {out}")
-    regs = ptxas_report(build_logs())
+    print(f"SASS of {ntt_cuda.library_path(14, source).name} and the other sizes -> {out}")
+    regs = ptxas_report(build_logs(logns, source))
     for name, instrs in sorted(parse(sass).items()):
         r = regs.get(name, {})
-        n, p = hot_pass(instrs)
+        n, p = (hot_pass64 if args.b4 else hot_pass)(instrs)
         hot = f"hot pass {n} instructions / {p} butterflies = {n / p:.2f} a butterfly" if p else "no pass"
         print(f"{name}: {len(instrs)} instructions, {r.get('registers', '?')} registers, "
               f"{r.get('spill_bytes', '?')} spill bytes; {hot}")

@@ -7,6 +7,7 @@ context (``make_synthetic_context(14, 19, 3, seed=0, num_rot=8)``) and the
 same operands, its outputs must hash to the same values.
 
     python tools/port_reference_digest.py
+    python tools/port_reference_digest.py wide [logn]
 
 * ``mul_relin_rescale(c0, c1, d0, d1)``: sha256 over the little-endian
   int32 bytes of out0, then out1;
@@ -15,6 +16,18 @@ same operands, its outputs must hash to the same values.
 
 ``num_rot`` changes the order of the numpy draws (the galois keys are drawn
 before the relinearization key), so the digests hold for this call only.
+
+``wide``: the same two calls on the wide path (``fast/wckks.py``) at
+bench.py's two wide shapes at logN 14, each with 8 galois keys
+(``num_rot=8``): PN14QP438 (``make_synthetic_context(14, 0, 0,
+moduli=(PN14QP438_Q, PN14QP438_P), num_rot=8)``) and wide61, bench.py's
+``make_synthetic_context(14, 6, 2, q_bits=(60,) + (45,) * 8, p_bits=61)``
+with its Q and with P the two largest 61-bit NTT-friendly primes below
+2^61 (``WIDE61_Q``, ``WIDE61_P``): bench.py's first 61-bit prime at logN 14,
+2305843009214414849, lies above 2^61, where the port's words stop.  The
+digests are over the canonical words (``wide.unpack_pair`` of the pairs) as
+little-endian int64, the form of the port's wide ring.  Name shapes after
+``wide`` to run only those.
 """
 
 from __future__ import annotations
@@ -39,7 +52,54 @@ def digest(arrays) -> str:
     return h.hexdigest()
 
 
+WIDE61_Q = (1152921504606748673, 35184372121601, 35184372744193, 35184373006337,
+            35184371138561, 35184370941953)
+WIDE61_P = (2305843009211662337, 2305843009211596801)
+WIDE_SHAPES = {
+    "pn14qp438": lambda wckks: wckks.make_synthetic_context(
+        LOGN, 0, 0, moduli=(wckks.PN14QP438_Q, wckks.PN14QP438_P), seed=SEED,
+        num_rot=NUM_ROT),
+    "wide61": lambda wckks: wckks.make_synthetic_context(
+        LOGN, 0, 0, moduli=(WIDE61_Q, WIDE61_P), seed=SEED, num_rot=NUM_ROT),
+}
+
+
+def wide_digest(pairs, moduli) -> str:
+    """sha256 of canonical words, little-endian int64, of wide pairs."""
+    from matrix_fhe_tpu.ops import wide
+    h = hashlib.sha256()
+    for a in pairs:
+        lq = np.asarray(a).shape[-2]
+        h.update(wide.unpack_pair(np.asarray(a), moduli[:lq]).astype("<i8").tobytes())
+    return h.hexdigest()
+
+
+def main_wide(names) -> None:
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    from matrix_fhe_tpu.fast import wckks
+
+    for name in names or WIDE_SHAPES:
+        t0 = time.perf_counter()
+        ctx, (c0, c1, d0, d1) = WIDE_SHAPES[name](wckks)
+        Q = ctx.ring_q.moduli_tuple
+        out0, out1 = jax.jit(wckks.mul_relin_rescale)(ctx, c0, c1, d0, d1)
+        mrr = wide_digest([out0, out1], Q)
+        t1 = time.perf_counter()
+        rots = jax.jit(wckks.rotations_hoisted, static_argnums=3)(
+            ctx, c0, c1, ctx.gal_els)
+        rot = wide_digest([a for g in ctx.gal_els for a in rots[g]], Q)
+        print(f"# {name}: logN {LOGN}, Q {list(Q)}, P {list(ctx.ring_p.moduli_tuple)}, "
+              f"gal_els {ctx.gal_els}; mul_relin_rescale {t1 - t0:.1f} s, "
+              f"rotations_hoisted {time.perf_counter() - t1:.1f} s on "
+              f"{jax.devices()[0].platform}", flush=True)
+        print(f'    "{name}": ("{mrr}",\n{" " * 18}"{rot}"),', flush=True)
+
+
 def main() -> None:
+    if sys.argv[1:2] == ["wide"]:
+        main_wide(sys.argv[2:])
+        return
     import jax
     jax.config.update("jax_platforms", "cpu")
     from matrix_fhe_tpu.fast import fckks
