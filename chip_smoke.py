@@ -8,9 +8,10 @@ two primes, 8 hoisted rotations):
 
 1. device: requires CUDA (exits non-zero without it) and prints the card's
    name and power limit as nvidia-smi reports them;
-2. build: compiles the NTT kernel (csrc/ntt.cu) from this checkout, one
-   library for each N the path runs (2^14, and 2^10 for phase 7), one nvcc
-   each, started together;
+2. build: compiles the kernels from this checkout, started together, one
+   nvcc for each library: csrc/ntt.cu (B1-B3) for each N the path runs
+   (2^14, and 2^10 for phase 7), csrc/ntt64.cu (B4) for each N phase 10
+   checks, and csrc/ntt3n.cu (B5, one library for all N);
 3. kernel vs plain: at every NTT shape of the step, the kernel's forward and
    inverse are bit-identical to the plain torch version run on CPU copies,
    inverse(forward(x)) == x, and both versions are timed on the card; the
@@ -137,18 +138,64 @@ plain NTT on the CPU, and its launches there are printed):
     drawn as that test draws them, within its bounds, each equal to the
     same circuit on the CPU with the card's keys.
 
+Then the fork's own rings and kernel B5, the 3N ring's factorized NTT
+(csrc/ntt3n.cu), and the conjugate-invariant (CI) ring over B4:
+
+14. B5 alone: at N = 6 (no factorized split: the dense transform runs and
+    B5 is launched no time), 48, 96, 1152, 1536, 12288, 24576 and 27648 (the
+    largest the kernel takes) on 45-, 55- and 60-bit 3N primes over
+    [2, 3, N], bit-identical to its plain version (ops/ntt_3n.py) on the
+    card and, for one row, on the CPU, forward and inverse, and
+    inverse(forward(x)) == x; at N = 12288 over phase 15's 7 primes, the
+    forward and inverse of a numpy-seeded [2, 7, N] input hash to the JAX
+    package's digests (tools/port_reference_digest.py 3n); its hot loop's
+    instructions a MAC, registers and spills (tools/ntt_sass.py --b5); and,
+    after phase 15, bit-identical at every shape phase 15 gave it, with its
+    times there (the kernels-line time, the device time queued, L2 flushed,
+    the wrapper's host time, the plain version's time) beside the bound;
+15. a Matrix-CKKS session at N = 12288 = 2^12 3 through the user's entry
+    points (schemes/matrix_ckks): 50 + 40x5-bit Q, a 60-bit P (3N primes,
+    all below 2^61), scale 2^40; keygen (the secret, relinearization and
+    galois keys for 5 and 3N - 1: the draws on CPU generators and the
+    deterministic part, timed apart), encode + encrypt of two vectors of N
+    reals from default_rng(0), then add, mul_const(0.5) + rescale,
+    mul_relin + rescale and the two automorphisms, each once (B5 launches
+    counted) and as the median of 10 more, decrypt + decode: each held to
+    max |error| <= 0.1 (tests/test_matrix_ckks.py's tolerance) against the
+    numpy model (the ring product mod X^N - X^{N/2} + 1, the map X -> X^g),
+    its error printed in bits; peak device memory; and the same session on
+    the CPU with the card's keys equal to the card's, limb for limb and
+    decoded;
+16. CKKS on the CI ring at logN 14 (55 + 45x6-bit Q, a 61-bit P, scale
+    2^45, 16384 real slots from default_rng(0); tools/port_precision_floor.py
+    ci's literal and vectors): keygen, encode + encrypt, mul_relin +
+    rescale and a rotation by one slot, decrypt + decode, with B4's
+    launches on the CI ring at each (the standard ring's none), the min
+    precision held to the JAX package's less 1 bit, and the same code on
+    the CPU with the card's keys equal to the card's; then B4 on the CI ring
+    (ntt64_cuda.ntt_ci_fwd / ntt_ci_bwd: the fold's torch ops around the
+    launch) bit-identical to its plain version at every shape the session
+    gave it, with its times there (as B5's) beside the bound.
+
 Prints a JSON line of per-kernel results, one entry per kernel entry point:
 launches on its path (phase 4 for ntt_fwd/ntt_bwd, 6 for the chain, 7 for
 w22; counts zeroed just before each run and read just after; ntt_fwd/ntt_bwd
 also give launches_by_path: phase 4's, phase 8's cold pass, and phase 9's
 bootstrap and evaluate apart; ntt64_fwd/ntt64_bwd, kernel B4, phase 11's
-three PN14QP438 requests, with launches_by_path over phases 8, 9, 11, 12
-and 13), max |kernel - plain| (phases 3 and 9 for B1, 10 for B4), the
-kernel's and plain version's times (phase 3's shapes summed, one launch
-each, for ntt_fwd/ntt_bwd; the PN14QP438 step's shapes summed for B4; the
-path's shape for the others), and the bound: the larger of the bytes over
-the card's memory rate and the butterflies' integer operations over its
-int32 rate (for B4 the instructions of a 64-bit butterfly from its SASS).  Times in that line are CUDA-event
+three PN14QP438 requests, with launches_by_path over phases 8, 9, 11, 12,
+13; ntt3n_fwd/ntt3n_bwd, kernel B5, phase 15's operations, with
+launches_by_path over its keygen and each operation; ntt64_ci_fwd /
+ntt64_ci_bwd, B4 on the CI ring, phase 16's session, by stage), max
+|kernel - plain| (phases 3 and 9 for B1, 10 for B4, 14 for B5, 16 for B4
+on the CI ring), the kernel's and plain version's times (phase 3's shapes
+summed, one launch each, for ntt_fwd/ntt_bwd; the PN14QP438 step's shapes
+summed for B4; phase 15's shapes summed for B5 and phase 16's for B4 on the
+CI ring, with their device, L2-flushed and host times beside; the path's
+shape for the others), and the bound: the larger of the bytes over the
+card's memory rate and the integer operations over its int32 rate (for B4
+and B5, the 32-bit multiply-adds the function needs over the FMA pipe's
+rate: see MULS_FULL; the kernel's own SASS instructions a butterfly or a
+MAC are reported beside it).  Times in that line are CUDA-event
 means of launches issued back to back from the host (_event_ms).  No single
 PyTorch call computes a negacyclic NTT mod q, so library_ms is null.  Then, as its last line,
 {"ok": true, "device": {...}}.  Any failed check raises and exits non-zero.
@@ -229,6 +276,21 @@ BOOT_FLOORS = ("dft round trip 2^34", "eval_mod")
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_BUTTERFLY = 7
 INT32_OPS_PER_CLOCK_PER_SM = 128
+# The operations bound of B4 and B5 (64-bit words) counts the 32-bit
+# multiply-adds that the function needs, not the instructions the kernel's
+# SASS spends (that count is printed beside it: the kernel's own cost, not
+# the bound).  They run on the FMA pipe alone, 64 a clock on each SM, half
+# the int32 rate above; the adds, carries and selects beside them issue on
+# the ALU pipe and are left out.  With schoolbook 32 x 32 -> 64 partial
+# products, a 64 x 64 -> 128 product takes 8 (the low and the high half of
+# each of the 4), its low 64 bits 4, its high 64 bits 7 (the lowest half
+# only carries).  A product by a fixed table word in Shoup form is a high
+# half (the quotient) and two low halves (w x - quotient q); a Montgomery
+# reduction of a 128-bit sum is a low half (m = lo q^-1) and a high half
+# (m q); a Montgomery MAC sums the whole product into 128 bits.
+MULS_FULL, MULS_LO, MULS_HI = 8, 4, 7
+MULS_SHOUP = MULS_HI + 2 * MULS_LO
+MULS_REDC = MULS_LO + MULS_HI
 # Phases 10-13, the wide path and kernel B4 (csrc/ntt64.cu): the TPU
 # transform it replaces (wide_ntt.ntt_fwd / ntt_bwd, XLA int8 matmuls, not a
 # pl.pallas_call), the sizes phase 10 checks it at, and bench.py's two wide
@@ -263,6 +325,30 @@ WIDE_BOOT_FLOOR = {"mean": 15.0, "min": 5.0}
 # Goldschmidt; atol + rtol |1/x| with 0.01 each for the inverse)
 CIRCUIT_BOUNDS = {"sign": 0.1, "step": 0.1, "max": 0.05, "min": 0.05,
                   "goldschmidt_division": 1e-4, "evaluate_positive_domain": 0.01}
+# Phases 14-16, the fork's rings and kernel B5 (csrc/ntt3n.cu): the TPU
+# transform it replaces (ntt_3n.ntt_fwd / ntt_bwd, XLA u64 mod-matmuls, not a
+# pl.pallas_call), the degrees phase 14 checks it at (N = 6 has no
+# factorized split and runs the dense transform), its digests at N = 12288
+# over phase 15's 7 primes (tools/port_reference_digest.py 3n, the JAX
+# package on the CPU), phase 15's Matrix-CKKS literal and repeats, its bound
+# (tests/test_matrix_ckks.py's tolerance), and phase 16's precision floors on
+# the CI ring (tools/port_precision_floor.py ci, the JAX package on an 8-core
+# CPU with its own keys and draws: min precision 28.8296 bits for the
+# product, 29.1074 for the rotation; the floor is 1 bit below).
+B5_SOURCE = "matrix_fhe_tpu_torch/csrc/ntt3n.cu"
+B5_REPLACES = {"fwd": "matrix_fhe_tpu/ops/ntt_3n.py:213",
+               "bwd": "matrix_fhe_tpu/ops/ntt_3n.py:234"}
+B5_SIZES = (6, 48, 96, 1152, 1536, 12288, 24576, 27648)
+# B4 on the CI ring: its wrapper's entry points and the CI transform they replace
+CI_ENTRIES = ("ntt_ci_fwd", "ntt_ci_bwd")
+CI_REPLACES = {"fwd": "matrix_fhe_tpu/ops/rings.py:430", "bwd": "matrix_fhe_tpu/ops/rings.py:455"}
+NTT3N_SHA256 = {"fwd": "129191f786f063a8be246d1e8dc2f0801ea1a357f09f94e1dcb2c0e11d1f54d2",
+                "bwd": "f4b62cc500dfe7f65dcaa1b5101cdc05e774af8fcc6c7b5e2482df0e58e7a3bb"}
+MATRIX_LITERAL = dict(order2=12, order3=1, logq=(50, 40, 40, 40, 40, 40), logp=(60,),
+                      log_default_scale=40)
+MATRIX_REPEATS = 10
+MATRIX_BOUND = 0.1
+CI_FLOOR = {"product": 28.8296 - 1, "rotation": 29.1074 - 1}
 
 
 def _digest(tensors) -> str:
@@ -763,20 +849,27 @@ def check_ntt_shapes(shapes: dict, dev, rng) -> list:
 
 # -- phases 10-13: the wide path (41-61-bit primes) and kernel B4 ------------------
 
-def _b4_counted(dev, fn):
-    """fn() and B4's launches in it (counts zeroed just before, read just after)."""
-    from matrix_fhe_tpu_torch.ops import ntt64_cuda
+def _counted_in(wrapper, dev, fn):
+    """fn() and the launches of ``wrapper``'s kernel (a module with
+    ``fwd_launches`` and ``bwd_launches``) in it: counts zeroed just before,
+    read just after."""
     _sync(dev)
-    ntt64_cuda.fwd_launches = ntt64_cuda.bwd_launches = 0
+    wrapper.fwd_launches = wrapper.bwd_launches = 0
     out = fn()
-    return out, {"fwd": ntt64_cuda.fwd_launches, "bwd": ntt64_cuda.bwd_launches}
+    return out, {"fwd": wrapper.fwd_launches, "bwd": wrapper.bwd_launches}
 
 
-def b4_shapes(fn, seen: dict):
-    """fn() with every B4 call recorded into ``seen``: {(direction, shape,
-    moduli): ring}."""
+def _b4_counted(dev, fn):
+    """fn() and B4's launches in it."""
     from matrix_fhe_tpu_torch.ops import ntt64_cuda
-    fwd, bwd = ntt64_cuda.ntt_fwd, ntt64_cuda.ntt_bwd
+    return _counted_in(ntt64_cuda, dev, fn)
+
+
+def _shapes_in(wrapper, fn, seen: dict, names=("ntt_fwd", "ntt_bwd")):
+    """fn() with every call of ``wrapper``'s entry points ``names`` (forward,
+    inverse; each takes (x, ring)) recorded into ``seen``:
+    {(direction, shape, moduli): ring}."""
+    fwd, bwd = (getattr(wrapper, name) for name in names)
 
     def recording(direction, kernel):
         def call(x, ring):
@@ -784,11 +877,19 @@ def b4_shapes(fn, seen: dict):
             return kernel(x, ring)
         return call
 
-    ntt64_cuda.ntt_fwd, ntt64_cuda.ntt_bwd = recording("fwd", fwd), recording("bwd", bwd)
+    setattr(wrapper, names[0], recording("fwd", fwd))
+    setattr(wrapper, names[1], recording("bwd", bwd))
     try:
         return fn()
     finally:
-        ntt64_cuda.ntt_fwd, ntt64_cuda.ntt_bwd = fwd, bwd
+        setattr(wrapper, names[0], fwd)
+        setattr(wrapper, names[1], bwd)
+
+
+def b4_shapes(fn, seen: dict):
+    """fn() with every B4 call recorded into ``seen``."""
+    from matrix_fhe_tpu_torch.ops import ntt64_cuda
+    return _shapes_in(ntt64_cuda, fn, seen)
 
 
 def _digest64(tensors) -> str:
@@ -815,14 +916,17 @@ def _words(rng, lead, moduli, n) -> torch.Tensor:
     return torch.from_numpy(x)
 
 
-def _b4_bound(rows: int, limbs: int, n: int, instr_per_butterfly: float, int32_ops_per_s):
+def _b4_bound(rows: int, limbs: int, n: int, fwd: bool, int32_ops_per_s, ci: bool = False):
     """(bytes time, operations time) in ms of one B4 transform of ``rows``
     rows over ``limbs`` limbs: 8 B a word in and out, 16 B a table word (the
-    twiddle and its Shoup quotient); the 32-bit instructions of a 64-bit
-    butterfly (from SASS) at the SM's issue rate."""
+    twiddle and its Shoup quotient); a Shoup product a butterfly, and one an
+    element for the inverse's N^-1, or on the CI ring for the fold (and the
+    inverse's (2N)^-1), in multiply-adds on the FMA pipe."""
     nbytes = 8 * n * 2 * rows + 16 * n * limbs
-    ops = rows * (n // 2) * (n.bit_length() - 1) * instr_per_butterfly
-    return nbytes / HBM_BYTES_PER_S * 1e3, ops / int32_ops_per_s * 1e3
+    products = (n // 2) * (n.bit_length() - 1) + (n * (1 if fwd else 2) if ci else
+                                                  (0 if fwd else n))
+    return (nbytes / HBM_BYTES_PER_S * 1e3,
+            rows * products * MULS_SHOUP / (int32_ops_per_s / 2) * 1e3)
 
 
 def check_b4_sizes(dev, rng, sms) -> list:
@@ -880,14 +984,24 @@ def check_b4_shapes(shapes: dict, dev, rng) -> list:
     return rows
 
 
-def time_b4(d, shape, ring, dev, rng, flush) -> dict:
-    from matrix_fhe_tpu_torch.ops import ntt64_cuda
-    kern = ntt64_cuda.ntt_fwd if d == "fwd" else ntt64_cuda.ntt_bwd
-    plain = ntt64_cuda.ntt_fwd_plain if d == "fwd" else ntt64_cuda.ntt_bwd_plain
+def _time_in(wrapper, d, shape, ring, dev, rng, flush, plain_iters: int = 20,
+             names=("ntt_fwd", "ntt_bwd")) -> dict:
+    """``wrapper``'s entry point of ``names`` in direction ``d`` on random
+    words of ``shape``: the kernels-line, queued, L2-flushed and host times,
+    and the plain version's (the entry point's name + "_plain") time."""
+    name = names[0] if d == "fwd" else names[1]
+    kern, plain = getattr(wrapper, name), getattr(wrapper, name + "_plain")
     x = _words(rng, shape[:-2], ring.moduli_tuple, shape[-1]).to(dev)
     return {"ms": _event_ms(lambda: kern(x, ring)), "device": _device_ms(lambda: kern(x, ring)),
             "flushed": _flushed_ms(lambda: kern(x, ring), flush),
-            "host": _host_ms(lambda: kern(x, ring)), "plain_ms": _event_ms(lambda: plain(x, ring))}
+            "host": _host_ms(lambda: kern(x, ring)),
+            "plain_ms": _event_ms(lambda: plain(x, ring), iters=plain_iters,
+                                  warmup=min(3, plain_iters))}
+
+
+def time_b4(d, shape, ring, dev, rng, flush) -> dict:
+    from matrix_fhe_tpu_torch.ops import ntt64_cuda
+    return _time_in(ntt64_cuda, d, shape, ring, dev, rng, flush)
 
 
 def wide_step(name: str, dev):
@@ -1190,7 +1304,7 @@ def wide_phases(dev, smi: str, rng, sms: int, int32_ops_per_s: float) -> dict:
             continue
         t = time_b4(d, shape, ring, dev, rng, flush)
         rows_n = int(np.prod(shape[:-1]))
-        b = _b4_bound(rows_n, shape[-2], shape[-1], b4_instr[d, c], int32_ops_per_s)
+        b = _b4_bound(rows_n, shape[-2], shape[-1], d == "fwd", int32_ops_per_s)
         b4_bounds[d].append(b)
         b4_stats[d]["ms"] += t["ms"]
         b4_stats[d]["plain_ms"] += t["plain_ms"]
@@ -1201,7 +1315,8 @@ def wide_phases(dev, smi: str, rng, sms: int, int32_ops_per_s: float) -> dict:
               f"{t['host']:.4f} ms a call | plain {t['plain_ms']:.4f} ms | bound bytes "
               f"{b[0] * 1e3:.3f} us, operations {b[1] * 1e3:.3f} us | {smi}")
     for d in ("fwd", "bwd"):
-        b4_stats[d].update(_bound_entry(b4_bounds[d]))
+        b4_stats[d].update(_bound_entry(b4_bounds[d]),
+                           sass_instructions_a_butterfly=b4_instr[d, 8])
         print(f"phase b4: the PN14QP438 step's {len(b4_bounds[d])} {d} shapes summed: kernel "
               f"{b4_stats[d]['ms']:.4f} ms, device queued {b4_extra[d]['device']:.4f} ms, L2 "
               f"flushed {b4_extra[d]['flushed']:.4f} ms, host {b4_extra[d]['host']:.4f} ms, plain "
@@ -1223,6 +1338,421 @@ def wide_phases(dev, smi: str, rng, sms: int, int32_ops_per_s: float) -> dict:
     return {"size_rows": size_rows, "shape_rows": shape_rows, "stats": b4_stats,
             "by_path": by_path}
 
+# -- phases 14-16: the fork's rings: B5, Matrix-CKKS at N = 12288, CKKS on the CI ring --
+
+def _b5_counted(dev, fn):
+    """fn() and B5's launches in it."""
+    from matrix_fhe_tpu_torch.ops import ntt3n_cuda
+    return _counted_in(ntt3n_cuda, dev, fn)
+
+
+def _ci_counted(dev, fn):
+    """fn() and B4's launches on the CI ring in it, and on the standard ring."""
+    from matrix_fhe_tpu_torch.ops import ntt64_cuda
+    _sync(dev)
+    ntt64_cuda.ci_fwd_launches = ntt64_cuda.ci_bwd_launches = 0
+    ntt64_cuda.fwd_launches = ntt64_cuda.bwd_launches = 0
+    out = fn()
+    _sync(dev)
+    return out, {"fwd": ntt64_cuda.ci_fwd_launches, "bwd": ntt64_cuda.ci_bwd_launches,
+                 "standard": ntt64_cuda.fwd_launches + ntt64_cuda.bwd_launches}
+
+
+def b5_shapes(fn, seen: dict):
+    """fn() with every B5 call recorded into ``seen``."""
+    from matrix_fhe_tpu_torch.ops import ntt3n_cuda
+    return _shapes_in(ntt3n_cuda, fn, seen)
+
+
+def _b5_bound(rows: int, limbs: int, n: int, int32_ops_per_s):
+    """(bytes time, operations time) in ms of one B5 transform of ``rows``
+    (row, limb) pairs over ``limbs`` limbs: 8 B a word in and out and a
+    word of the [R, R], [C, C] and [R, C] tables of each limb; for each of
+    a (row, limb)'s two branches of M = R C words, the two contractions'
+    M (R + C) Montgomery MACs and 2M reductions, and 3M products by table
+    words (forward: fold, twist, twiddle; inverse: twiddle, untwist and the
+    CRT solve), in multiply-adds on the FMA pipe."""
+    from matrix_fhe_tpu_torch.ops import ntt_3n
+    r, c = ntt_3n.split_rc(n // 2)
+    m = r * c
+    nbytes = 8 * n * 2 * rows + 8 * limbs * (r * r + c * c + r * c)
+    muls = rows * 2 * m * ((r + c) * MULS_FULL + 2 * MULS_REDC + 3 * MULS_SHOUP)
+    return nbytes / HBM_BYTES_PER_S * 1e3, muls / (int32_ops_per_s / 2) * 1e3
+
+
+def check_b5_sizes(dev, rng) -> list:
+    """B5 against its plain version at every size of B5_SIZES (three primes
+    of 45, 55 and 60 bits, [2, 3, N]), on the card and, for one row, on the
+    CPU; N = 6 runs the dense transform with no launch.  One row a size."""
+    from matrix_fhe_tpu_torch.ops import ntt3n_cuda, rings
+    from matrix_fhe_tpu_torch.utils import primes as pr
+    out = []
+    for n in B5_SIZES:
+        moduli = [pr.find_3n_rns_primes(n, b, 1)[0] for b in (45, 55, 60)]
+        ring = rings.new_ring(n, moduli, rings.MATRIX, device=dev)
+        cpu = rings.new_ring(n, moduli, rings.MATRIX, device="cpu")
+        x_cpu = _words(rng, (2,), moduli, n)
+        x = x_cpu.to(dev)
+        (f, b), counts = _b5_counted(dev, lambda: (ring.ntt(x), ring.intt(x)))
+        err = 0
+        if ring.ntt3n is None:
+            assert counts == {"fwd": 0, "bwd": 0}, f"N={n}: the dense transform launched B5"
+            err = int((f.cpu() != cpu.ntt(x_cpu)).sum() + (b.cpu() != cpu.intt(x_cpu)).sum())
+        else:
+            assert counts == {"fwd": 1, "bwd": 1}, (n, counts)
+            err += int((f != ntt3n_cuda.ntt_fwd_plain(x, ring)).sum())
+            err += int((b != ntt3n_cuda.ntt_bwd_plain(x, ring)).sum())
+            err += int((f[0].cpu() != ntt3n_cuda.ntt_fwd_plain(x_cpu[0], cpu)).sum())
+            err += int((b[0].cpu() != ntt3n_cuda.ntt_bwd_plain(x_cpu[0], cpu)).sum())
+        assert torch.equal(ring.intt(f), x), f"B5 N={n}: inverse(forward(x)) != x"
+        out.append((n, ring.ntt3n and (ring.ntt3n.rows, ring.ntt3n.cols), counts, err))
+    return out
+
+
+def check_b5_shapes(shapes: dict, dev, rng) -> list:
+    """B5 against its plain version on the card at each recorded shape (its
+    moduli, random words): (direction, shape, mismatched words, ring)."""
+    from matrix_fhe_tpu_torch.ops import ntt3n_cuda
+    rows = []
+    for (d, shape, _), ring in sorted(shapes.items(), key=lambda kv: (kv[0][1], kv[0][0])):
+        kern = ntt3n_cuda.ntt_fwd if d == "fwd" else ntt3n_cuda.ntt_bwd
+        plain = ntt3n_cuda.ntt_fwd_plain if d == "fwd" else ntt3n_cuda.ntt_bwd_plain
+        x = _words(rng, shape[:-2], ring.moduli_tuple, shape[-1]).to(dev)
+        rows.append((d, shape, int((kern(x, ring) != plain(x, ring)).sum()), ring))
+    return rows
+
+
+def check_ci_shapes(shapes: dict, dev, rng) -> list:
+    """B4 on the CI ring (``ntt_ci_fwd``/``ntt_ci_bwd``: the fold as torch
+    ops around the launch) against its plain version on the card at each
+    recorded shape: (direction, shape, mismatched words, ring)."""
+    from matrix_fhe_tpu_torch.ops import ntt64_cuda
+    rows = []
+    for (d, shape, _), ring in sorted(shapes.items(), key=lambda kv: (kv[0][1], kv[0][0])):
+        kern = ntt64_cuda.ntt_ci_fwd if d == "fwd" else ntt64_cuda.ntt_ci_bwd
+        plain = ntt64_cuda.ntt_ci_fwd_plain if d == "fwd" else ntt64_cuda.ntt_ci_bwd_plain
+        x = _words(rng, shape[:-2], ring.moduli_tuple, shape[-1]).to(dev)
+        rows.append((d, shape, int((kern(x, ring) != plain(x, ring)).sum()), ring))
+    return rows
+
+
+def time_b5(d, shape, ring, dev, rng, flush) -> dict:
+    """As ``time_b4``; the plain version (7-12 ms a call) 5 times."""
+    from matrix_fhe_tpu_torch.ops import ntt3n_cuda
+    return _time_in(ntt3n_cuda, d, shape, ring, dev, rng, flush, plain_iters=5)
+
+
+def ring_product(a, b):
+    """a b mod X^N - X^{N/2} + 1, in float64 (reduce with X^N = X^{N/2} - 1)."""
+    n = len(a)
+    prod = np.zeros(2 * n)
+    for i in range(n):
+        prod[i:i + n] += a[i] * b
+    for k in range(n - 1, -1, -1):
+        prod[k + n // 2] += prod[n + k]
+        prod[k] -= prod[n + k]
+    return prod[:n]
+
+
+def automorphism_model(v, g):
+    """v(X^g) mod X^N - X^{N/2} + 1: reduce with X^{3N/2} = -1, then with
+    X^N = X^{N/2} - 1."""
+    n = len(v)
+    full = np.zeros(3 * n)
+    np.add.at(full, (np.arange(n) * g) % (3 * n), v)
+    h = 3 * n // 2
+    full[:h] -= full[h:]
+    for e in range(h - 1, n - 1, -1):
+        full[e - n + n // 2] += full[e]
+        full[e - n] -= full[e]
+    return full[:n]
+
+
+def matrix_keys(params, gal_els, times: dict):
+    """The secret, relinearization and galois keys: the draws on CPU
+    generators, then the deterministic part, timed apart."""
+    from matrix_fhe_tpu_torch.rlwe import keys as K
+    dev = params.device
+
+    def draws():
+        return (K.sample_secret(_gen(301), params), K.sample_evaluation_key(_gen(302), params),
+                {g: K.sample_evaluation_key(_gen(310 + i), params) for i, g in enumerate(gal_els)})
+
+    def keys(small, rlk_s, gk_s):
+        sk = K.secret_key_from_sample(params, small)
+        return (sk, K.relinearization_key_from_samples(params, sk, rlk_s),
+                {g: K.galois_key_from_samples(params, sk, g, s) for g, s in gk_s.items()})
+
+    samples = _timed(times, f"keygen draws (secret, relinearization, {len(gal_els)} galois)",
+                     dev, draws)
+    return _timed(times, "keygen deterministic part", dev, lambda: keys(*samples))
+
+
+def matrix_ops(params, rlk, gks):
+    """Phase 15's operations, name -> fn(ct1, ct2)."""
+    from matrix_fhe_tpu_torch.schemes import matrix_ckks as mc
+    ev = mc.Evaluator(params)
+    ops = {"add": lambda a, b: ev.add(a, b),
+           "mul_const(0.5) + rescale": lambda a, b: ev.rescale(ev.mul_const(a, 0.5)),
+           "mul_relin + rescale": lambda a, b: ev.rescale(ev.mul_relin(a, b, rlk))}
+    for g in gks:
+        ops[f"automorphism {g}"] = lambda a, b, g=g: ev.automorphism(a, gks[g])
+    return ops
+
+
+def matrix_session(dev, times: dict, keys=None) -> dict:
+    """Phase 15 on ``dev``: the parameters, the keys (or ``keys``, moved
+    over), encode + encrypt of two vectors, each operation once (its B5
+    launches counted), decrypt + decode."""
+    from matrix_fhe_tpu_torch.rlwe import decryptor, encryptor
+    from matrix_fhe_tpu_torch.schemes import matrix_ckks as mc
+    params = _timed(times, "parameters", dev, lambda: mc.new_parameters(
+        mc.MatrixCKKSParametersLiteral(**MATRIX_LITERAL), device=dev))
+    gal_els = [5, 3 * params.n - 1]
+    if keys is None:
+        keys, counts_keys = _b5_counted(dev, lambda: matrix_keys(params, gal_els, times))
+    else:
+        keys, counts_keys = _move(keys, dev), None
+    sk, rlk, gks = keys
+    enc = mc.Encoder(params)
+    rng = np.random.default_rng(SEED)
+    v1, v2 = rng.uniform(-1, 1, params.n), rng.uniform(-1, 1, params.n)
+    cts = _timed(times, "encode + encrypt x2", dev, lambda: [
+        encryptor.encrypt(_gen(320 + i), params, sk, enc.encode(v)) for i, v in enumerate((v1, v2))])
+    outs, counts = {}, {}
+    for name, fn in matrix_ops(params, rlk, gks).items():
+        outs[name], counts[name] = _b5_counted(dev, lambda: _timed(times, name, dev,
+                                                                  lambda: fn(*cts)))
+    dec = {name: enc.decode(decryptor.decrypt(params, sk, ct)) for name, ct in outs.items()}
+    _timed(times, "decrypt + decode", dev,
+           lambda: enc.decode(decryptor.decrypt(params, sk, outs["add"])))
+    return {"params": params, "keys": keys, "cts": cts, "outs": outs, "dec": dec,
+            "counts": counts, "counts_keys": counts_keys, "v": (v1, v2)}
+
+
+def ci_session(dev, times: dict, keys=None) -> dict:
+    """Phase 16 on ``dev``: CKKS on the CI ring, keys from CPU generators
+    (or ``keys``), mul_relin + rescale and a rotation by one slot."""
+    from matrix_fhe_tpu_torch.rlwe import decryptor, encryptor
+    from matrix_fhe_tpu_torch.rlwe import keys as K
+    from matrix_fhe_tpu_torch.schemes import ckks
+    from tools.port_precision_floor import CI_LITERAL, CI_ROTATION, ci_vectors
+    params = ckks.new_parameters(ckks.CKKSParametersLiteral(**CI_LITERAL), device=dev)
+    g = params.galois_element(CI_ROTATION)
+    counts = {}
+    if keys is None:
+        def gen_keys():
+            sk = K.gen_secret_key(_gen(401), params)
+            return (sk, K.gen_relinearization_key(_gen(402), params, sk),
+                    K.gen_galois_key(_gen(403), params, sk, g))
+        keys, counts["keygen"] = _ci_counted(dev, lambda: _timed(times, "keygen", dev, gen_keys))
+    else:
+        keys = _move(keys, dev)
+    sk, rlk, gk = keys
+    enc = ckks.Encoder(params)
+    ev = ckks.Evaluator(params, rlk=rlk, galois_keys={g: gk})
+    v1, v2 = ci_vectors(params.max_slots)
+    cts, counts["encode + encrypt"] = _ci_counted(dev, lambda: _timed(
+        times, "encode + encrypt x2", dev, lambda: [
+            encryptor.encrypt(_gen(410 + i), params, sk, enc.encode(v))
+            for i, v in enumerate((v1, v2))]))
+    outs = {}
+    for name, fn in (("mul_relin + rescale", lambda: ev.rescale(ev.mul_relin(*cts))),
+                     (f"rotate {CI_ROTATION}", lambda: ev.rotate(cts[0], CI_ROTATION))):
+        outs[name], counts[name] = _ci_counted(dev, lambda: _timed(times, name, dev, fn))
+    dec, counts["decrypt + decode"] = _ci_counted(dev, lambda: _timed(
+        times, "decrypt + decode x2", dev, lambda: {
+            k: enc.decode(decryptor.decrypt(params, sk, ct)) for k, ct in outs.items()}))
+    prec = {"product": ckks.precision_stats(v1 * v2, dec["mul_relin + rescale"]),
+            "rotation": ckks.precision_stats(np.roll(v1, -CI_ROTATION), dec[f"rotate {CI_ROTATION}"])}
+    return {"params": params, "keys": keys, "cts": cts, "outs": outs, "dec": dec,
+            "prec": prec, "counts": counts}
+
+
+def matrix_phases(dev, smi: str, rng, int32_ops_per_s: float) -> dict:
+    """Phases 14-16 (see the module's docstring); returns what the kernels
+    line reports of B5 and of B4 on the CI ring."""
+    from matrix_fhe_tpu_torch.ops import ntt3n_cuda, ntt64_cuda, rings
+    from matrix_fhe_tpu_torch.rlwe import params as rparams
+    from tools import ntt_sass
+    from tools.port_reference_digest import THREE_N, three_n_input, words_digest
+
+    # -- 14. B5 alone ------------------------------------------------------------------
+    max_err = 0
+    for n, rc, counts, err in check_b5_sizes(dev, rng):
+        max_err = max(max_err, err)
+        assert err == 0, f"B5 N={n}: kernel != plain ({err} words)"
+        what = f"R x C = {rc[0]} x {rc[1]}, launches {counts}" if rc else \
+            f"dense transform, no launch {counts}"
+        print(f"phase b5: N {n:6d} [2, 3, N]: {what}; kernel == plain (card, and CPU for one "
+              f"row), inverse(forward(x)) == x")
+    n = (1 << THREE_N["order2"]) * 3 ** THREE_N["order3"]
+    q, p = rparams.gen_3n_moduli(n, THREE_N["logq"], THREE_N["logp"])
+    ring = rings.new_ring(n, q + p, rings.MATRIX, device=dev)
+    x = torch.from_numpy(three_n_input(q + p, n)).to(dev)
+    got = {"fwd": words_digest([ring.ntt(x).cpu().numpy()]),
+           "bwd": words_digest([ring.intt(x).cpu().numpy()])}
+    assert got == NTT3N_SHA256, f"B5 at N={n}: digests {got} != the JAX package's"
+    print(f"phase b5: N {n} over the {len(q + p)} primes of phase 15 ([2, 7, N]): forward and "
+          f"inverse hash to the JAX package's digests (tools/port_reference_digest.py 3n)")
+    funcs = ntt_sass.parse(ntt_sass.disassemble([ntt3n_cuda.BUILD_KEY], ntt3n_cuda.SOURCE))
+    regs = ntt_sass.ptxas_report(ntt_sass.build_logs([ntt3n_cuda.BUILD_KEY], ntt3n_cuda.SOURCE))
+    per_mac = {}
+    for d in ("fwd", "bwd"):
+        name = f"ntt3n_{d}_kernel"
+        instrs, macs = ntt_sass.hot_mac_loop(funcs[name])
+        assert macs, f"{name}: no MAC loop found in its SASS"
+        per_mac[d] = instrs / macs
+        print(f"phase b5: {name} hot loop {instrs} instructions / {macs} MACs = "
+              f"{per_mac[d]:.2f} a MAC (the bound counts the {MULS_FULL} multiply-adds a MAC "
+              f"needs); {regs[name]['registers']} registers, {regs[name]['spill_bytes']} spill "
+              f"bytes")
+
+    # -- 15. Matrix-CKKS at N = 12288 ---------------------------------------------------
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    mtimes: dict = {}
+    seen: dict = {}
+    ms = b5_shapes(lambda: matrix_session(dev, mtimes), seen)
+    peak = torch.cuda.max_memory_allocated()
+    mp = ms["params"]
+    print(f"phase matrix: Matrix-CKKS N {mp.n} = 2^{MATRIX_LITERAL['order2']} 3, Q "
+          f"{[q.bit_length() for q in mp.q]} bits, P {[p.bit_length() for p in mp.p]} bits, "
+          f"scale 2^{MATRIX_LITERAL['log_default_scale']}, galois elements {sorted(ms['keys'][2])}")
+    v1, v2 = ms["v"]
+    want = {"add": v1 + v2, "mul_const(0.5) + rescale": 0.5 * v1,
+            "mul_relin + rescale": ring_product(v1, v2)}
+    for g in ms["keys"][2]:
+        want[f"automorphism {g}"] = automorphism_model(v1, g)
+    ops = matrix_ops(mp, ms["keys"][1], ms["keys"][2])
+    warm = {}
+    for name, fn in ops.items():
+        reps = []
+        for _ in range(MATRIX_REPEATS):
+            _timed(mtimes, "again", dev, lambda: fn(*ms["cts"]))
+            reps.append(mtimes.pop("again"))
+        warm[name] = statistics.median(reps)
+        err = float(np.abs(ms["dec"][name] - want[name]).max())
+        assert err <= MATRIX_BOUND, f"Matrix-CKKS {name}: max |error| {err} > {MATRIX_BOUND}"
+        print(f"phase matrix: {name:28s} request {mtimes[name]:9.3f} ms, warm median of "
+              f"{MATRIX_REPEATS} {warm[name]:9.3f} ms | B5 launches {ms['counts'][name]} | max "
+              f"|error| {err:.3e} ({-np.log2(err):.2f} bits; bound {MATRIX_BOUND}) | {smi}")
+    for name in ("parameters", *(k for k in mtimes if k.startswith("keygen")),
+                 "encode + encrypt x2", "decrypt + decode"):
+        print(f"phase matrix: {name:60s} {mtimes[name]:10.3f} ms | {smi}")
+    print(f"phase matrix: B5 launches keygen {ms['counts_keys']}; peak device memory "
+          f"{(peak - held) / 2**20:.1f} MiB above the {held / 2**20:.1f} MiB the earlier phases "
+          f"hold | {smi}")
+    ctimes: dict = {}
+    cpu = matrix_session(torch.device("cpu"), ctimes, keys=ms["keys"])
+    assert _same(ms["cts"], cpu["cts"]), "Matrix-CKKS encryptions: card != CPU"
+    for name in ops:
+        assert _same(ms["outs"][name], cpu["outs"][name]), f"Matrix-CKKS {name}: card != CPU"
+        assert np.array_equal(ms["dec"][name], cpu["dec"][name]), f"{name}: decoded card != CPU"
+    print("phase matrix: card == CPU (the card's keys, the plain NTT) for both encryptions and "
+          "every operation, limb for limb and decoded; CPU reference "
+          + ", ".join(f"{k} {ctimes[k] / 1e3:.2f} s" for k in ops))
+
+    # -- 14, continued: B5 at every shape phase 15 gave it -------------------------------
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    shape_rows = check_b5_shapes(seen, dev, rng)
+    stats = {d: {"max_abs_err": max_err, "ms": 0.0, "plain_ms": 0.0} for d in ("fwd", "bwd")}
+    extra = {d: {"device": 0.0, "flushed": 0.0, "host": 0.0} for d in ("fwd", "bwd")}
+    bounds = {"fwd": [], "bwd": []}
+    for d, shape, err, r in shape_rows:
+        assert err == 0, f"B5 {d} {shape}: kernel != plain ({err})"
+        t = time_b5(d, shape, r, dev, rng, flush)
+        b = _b5_bound(int(np.prod(shape[:-1])), shape[-2], shape[-1], int32_ops_per_s)
+        bounds[d].append(b)
+        stats[d]["ms"] += t["ms"]
+        stats[d]["plain_ms"] += t["plain_ms"]
+        for k in extra[d]:
+            extra[d][k] += t[k]
+        print(f"phase b5: {d} {str(list(shape)):18s} kernel {t['ms']:.4f} ms, device queued "
+              f"{t['device']:.4f} ms, L2 flushed {t['flushed']:.4f} ms, host {t['host']:.4f} ms "
+              f"a call | plain {t['plain_ms']:.4f} ms | bound bytes {b[0] * 1e3:.3f} us, "
+              f"operations {b[1] * 1e3:.3f} us | {smi}")
+    del flush
+    for d in ("fwd", "bwd"):
+        stats[d].update(_bound_entry(bounds[d]), sass_instructions_a_mac=per_mac[d],
+                        **{f"{k}_ms": v for k, v in extra[d].items()})
+        print(f"phase b5: phase 15's {len(bounds[d])} {d} shapes, kernel == plain at each; summed: "
+              f"kernel {stats[d]['ms']:.4f} ms, device queued {extra[d]['device']:.4f} ms, L2 "
+              f"flushed {extra[d]['flushed']:.4f} ms, host {extra[d]['host']:.4f} ms, plain "
+              f"{stats[d]['plain_ms']:.4f} ms, bound {stats[d]['bound_ms']:.4f} ms by "
+              f"{stats[d]['bound_by']} | {smi}")
+
+    # -- 16. CKKS on the CI ring at logN 14 ----------------------------------------------
+    from tools.port_precision_floor import CI_LITERAL
+    citimes: dict = {}
+    ci_seen: dict = {}
+    ci = _shapes_in(ntt64_cuda, lambda: ci_session(dev, citimes), ci_seen, CI_ENTRIES)
+    cp = ci["params"]
+    print(f"phase ci: CKKS on the conjugate-invariant ring, logN {cp.log_n}, {cp.max_slots} real "
+          f"slots, Q {[q.bit_length() for q in cp.q]} bits, P {[p.bit_length() for p in cp.p]} "
+          f"bits, scale 2^{CI_LITERAL['log_default_scale']}")
+    for name, ms_ in citimes.items():
+        print(f"phase ci: {name:24s} {ms_:10.3f} ms | B4 launches (CI ring) "
+              f"{ci['counts'].get(name.replace(' x2', ''), '-')} | {smi}")
+    for what, st in ci["prec"].items():
+        floor = CI_FLOOR[what]
+        print(f"phase ci: precision of {what}: min {st.min_precision:.4f} bits, mean "
+              f"{st.avg_precision:.4f} bits (floor on the min {floor:.4f}: the JAX package's "
+              f"less 1 bit, tools/port_precision_floor.py ci) | {smi}")
+        assert st.min_precision >= floor, f"CI {what}: below the floor"
+    for what, c in ci["counts"].items():
+        assert c["standard"] == 0, f"CI {what}: the standard ring's B4 launched"
+    assert ci["counts"]["mul_relin + rescale"]["fwd"] > 0
+    cpu_ci = ci_session(torch.device("cpu"), {}, keys=ci["keys"])
+    assert _same(ci["cts"], cpu_ci["cts"]), "CI encryptions: card != CPU"
+    for name in ci["outs"]:
+        assert _same(ci["outs"][name], cpu_ci["outs"][name]), f"CI {name}: card != CPU"
+        assert np.array_equal(ci["dec"][name], cpu_ci["dec"][name]), f"CI {name}: decoded"
+    print("phase ci: card == CPU (the card's keys, the plain NTT) for both encryptions, the "
+          "product and the rotation, limb for limb and decoded")
+
+    # -- 16, continued: B4 on the CI ring at every shape phase 16 gave it -----------------
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    ci_stats = {d: {"max_abs_err": 0, "ms": 0.0, "plain_ms": 0.0} for d in ("fwd", "bwd")}
+    ci_extra = {d: {"device": 0.0, "flushed": 0.0, "host": 0.0} for d in ("fwd", "bwd")}
+    ci_bounds = {"fwd": [], "bwd": []}
+    for d, shape, err, r in check_ci_shapes(ci_seen, dev, rng):
+        assert err == 0, f"B4 on the CI ring {d} {shape}: kernel != plain ({err})"
+        t = _time_in(ntt64_cuda, d, shape, r, dev, rng, flush, names=CI_ENTRIES)
+        b = _b4_bound(int(np.prod(shape[:-1])), shape[-2], shape[-1], d == "fwd",
+                      int32_ops_per_s, ci=True)
+        ci_bounds[d].append(b)
+        ci_stats[d]["ms"] += t["ms"]
+        ci_stats[d]["plain_ms"] += t["plain_ms"]
+        for k in ci_extra[d]:
+            ci_extra[d][k] += t[k]
+        print(f"phase ci: B4 on the CI ring {d} {str(list(shape)):18s} kernel {t['ms']:.4f} ms, "
+              f"device queued {t['device']:.4f} ms, L2 flushed {t['flushed']:.4f} ms, host "
+              f"{t['host']:.4f} ms a call | plain {t['plain_ms']:.4f} ms | bound bytes "
+              f"{b[0] * 1e3:.3f} us, operations {b[1] * 1e3:.3f} us | {smi}")
+    del flush
+    for d in ("fwd", "bwd"):
+        ci_stats[d].update(_bound_entry(ci_bounds[d]),
+                           **{f"{k}_ms": v for k, v in ci_extra[d].items()})
+        print(f"phase ci: phase 16's {len(ci_bounds[d])} {d} shapes of B4 on the CI ring (the "
+              f"fold's torch ops included), kernel == plain at each; summed: kernel "
+              f"{ci_stats[d]['ms']:.4f} ms, device queued {ci_extra[d]['device']:.4f} ms, L2 "
+              f"flushed {ci_extra[d]['flushed']:.4f} ms, host {ci_extra[d]['host']:.4f} ms, plain "
+              f"{ci_stats[d]['plain_ms']:.4f} ms, bound {ci_stats[d]['bound_ms']:.4f} ms by "
+              f"{ci_stats[d]['bound_by']} | {smi}")
+
+    def total(counts):
+        return {d: sum(c[d] for c in counts) for d in ("fwd", "bwd")}
+
+    b5_by_path = {"Matrix-CKKS keygen (phase 15)": ms["counts_keys"],
+                  **{f"Matrix-CKKS {k} (phase 15)": v for k, v in ms["counts"].items()}}
+    return {"b5_stats": stats, "b5_launches": total(ms["counts"].values()),
+            "b5_by_path": b5_by_path, "ci_stats": ci_stats,
+            "ci_launches": total(ci["counts"].values()),
+            "ci_by_path": {k: {"fwd": v["fwd"], "bwd": v["bwd"]}
+                           for k, v in ci["counts"].items()}}
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -1241,8 +1771,10 @@ def main() -> int:
     # -- 2. build -------------------------------------------------------------
     from matrix_fhe_tpu_torch.ops import ntt64_cuda
     t0 = time.perf_counter()
+    from matrix_fhe_tpu_torch.ops import ntt3n_cuda
     built = ntt_cuda.build_all([(ntt_cuda.SOURCE, logn) for logn in PATH_LOGNS]
-                               + [(ntt64_cuda.SOURCE, logn) for logn in B4_SIZES])
+                               + [(ntt64_cuda.SOURCE, logn) for logn in B4_SIZES]
+                               + [(ntt3n_cuda.SOURCE, ntt3n_cuda.BUILD_KEY)])
     print(f"phase build: built {len(built)} libraries, "
           f"{', '.join(ntt_cuda.library_path(logn, src).name for src, logn in built)}, in "
           f"{time.perf_counter() - t0:.2f} s (one nvcc each, started together)")
@@ -1683,6 +2215,7 @@ def main() -> int:
     del cpu_bts, cpu_out, cpu_meta, boot, bwarm
 
     b4 = wide_phases(dev, smi, rng, sms, int32_ops_per_s)
+    fork = matrix_phases(dev, smi, rng, int32_ops_per_s)
     assert "jax" not in sys.modules
 
     by_path = {d: {"step (phase 4)": launches[d], "session (phase 8, cold pass)":
@@ -1702,13 +2235,23 @@ def main() -> int:
         stats[f"ntt64_{d}"] = dict(b4["stats"][d], max_abs_err=max(
             [r[-1] for r in b4["size_rows"]] + [r[3] for r in b4["shape_rows"] if r[0] == d]))
         REPLACES[f"ntt64_{d}"] = B4_REPLACES[d]
+    for d in ("fwd", "bwd"):
+        by_path[f"ntt3n_{d}"] = {k: v[d] for k, v in fork["b5_by_path"].items()}
+        launches[f"ntt3n_{d}"] = fork["b5_launches"][d]
+        stats[f"ntt3n_{d}"] = fork["b5_stats"][d]
+        REPLACES[f"ntt3n_{d}"] = B5_REPLACES[d]
+        by_path[f"ntt64_ci_{d}"] = {f"CKKS on the CI ring, {k} (phase 16)": v[d]
+                                    for k, v in fork["ci_by_path"].items()}
+        launches[f"ntt64_ci_{d}"] = fork["ci_launches"][d]
+        stats[f"ntt64_ci_{d}"] = fork["ci_stats"][d]
+        REPLACES[f"ntt64_ci_{d}"] = CI_REPLACES[d]
     kernels = []
     for d in ("fwd", "bwd", "chain_fwd", "chain_bwd", "w22_fwd", "w22_bwd", "ntt64_fwd",
-              "ntt64_bwd"):
-        entry = {"name": d if d.startswith("ntt64") else f"ntt_{d}", "route": "cuda",
-                 "source": B4_SOURCE if d.startswith("ntt64") else SOURCE,
-                 "replaces": REPLACES[d], "launches": launches[d], **stats[d],
-                 "library_ms": None}
+              "ntt64_bwd", "ntt3n_fwd", "ntt3n_bwd", "ntt64_ci_fwd", "ntt64_ci_bwd"):
+        source = {"ntt64": B4_SOURCE, "ntt3n": B5_SOURCE}.get(d[:5], SOURCE)
+        entry = {"name": d if d[:5] in ("ntt64", "ntt3n") else f"ntt_{d}", "route": "cuda",
+                 "source": source, "replaces": REPLACES[d], "launches": launches[d],
+                 **stats[d], "library_ms": None}
         if d in by_path:
             entry["launches_by_path"] = by_path[d]
         assert entry["launches"] > 0 and entry["max_abs_err"] == 0, entry

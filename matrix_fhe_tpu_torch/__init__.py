@@ -24,7 +24,14 @@ Ported so far:
   (``ops/ntt_cuda.py``), and the w22-prime transform (``ops/ntt_w22.py``).
   They run one hand-written CUDA source (``csrc/ntt.cu``) that CUDA tensors
   go through; CPU tensors take a plain torch version of the same function
-  (``ops/ntt_plain.py``).
+  (``ops/ntt_plain.py``);
+* bootstrapping (``circuits/``, ``fast/fboot.py``), the wide path over
+  41-61-bit primes (``fast/w*.py``, the NTT of 64-bit words in
+  ``csrc/ntt64.cu``) and the comparison and inverse circuits;
+* the fork's own rings: the 3N ring with its factorized NTT
+  (``ops/ntt_3n.py``, ``csrc/ntt3n.cu``) and Matrix-CKKS
+  (``schemes/matrix_ckks``), and the conjugate-invariant ring with CKKS
+  over it.
 
 Randomness is not part of the bit-exactness contract: the port draws from
 torch generators, and its tests hand it the arrays the JAX package sampled.

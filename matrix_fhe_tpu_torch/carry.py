@@ -6,7 +6,8 @@ literal), literals and distributions, keys (secret, public,
 relinearization, galois and evaluation keys, in both gadget flavours),
 ciphertexts and plaintexts with their metadata, the bootstrapping
 parameters, literal and evaluation keys (the encapsulation keys included),
-and dicts, lists and tuples of them.  It works by the class name and the field names the two packages
+the 3N ring's literals (RLWE and Matrix-CKKS) and its factorized NTT
+tables, and dicts, lists and tuples of them.  It works by the class name and the field names the two packages
 share, so it imports nothing of the JAX package; any object with those
 fields as numpy arrays is carried the same way.  64-bit words keep their
 bits (uint64 arrays are viewed as int64, the port's word type); int32
@@ -34,12 +35,14 @@ import numpy as np
 import torch
 
 from matrix_fhe_tpu_torch.circuits.ckks import bootstrapping as btp
+from matrix_fhe_tpu_torch.ops import ntt_3n
 from matrix_fhe_tpu_torch.ops import samplers as smp
 from matrix_fhe_tpu_torch.ops import wide
 from matrix_fhe_tpu_torch.rlwe import elements as el
 from matrix_fhe_tpu_torch.rlwe import keys as K
 from matrix_fhe_tpu_torch.rlwe import params as rp
 from matrix_fhe_tpu_torch.schemes.ckks import params as cp
+from matrix_fhe_tpu_torch.schemes.matrix_ckks import scheme as mc
 from matrix_fhe_tpu_torch.utils.device import resolve_device
 
 
@@ -99,16 +102,29 @@ def carry(obj, device="cuda"):
         return _literal(rp.ParametersLiteral, obj)
     if name == "CKKSParametersLiteral":
         return _literal(cp.CKKSParametersLiteral, obj)
+    if name == "Parameters3NLiteral":
+        return _literal(rp.Parameters3NLiteral, obj)
+    if name == "MatrixCKKSParametersLiteral":
+        return _literal(mc.MatrixCKKSParametersLiteral, obj)
+    if name == "NTT3NTables":
+        return ntt_3n.NTT3NTables(
+            n=int(obj.n), rows=int(obj.rows), cols=int(obj.cols),
+            **{f: words(getattr(obj, f)) for f in ntt_3n.LIMB_FIELDS},
+            **{f: torch.from_numpy(np.asarray(getattr(obj, f), dtype=np.int64)).to(device)
+               for f in ("perm", "iperm")})
     if name == "CKKSParameters":
         return cp.new_parameters(cp.CKKSParametersLiteral(
             logn=obj.n.bit_length() - 1, q=tuple(obj.q), p=tuple(obj.p),
             log_default_scale=obj.log_default_scale, ring_type=obj.ring_type,
             xe=go(obj.xe), xs=go(obj.xs)), device)
     if name == "Parameters":
-        return rp.Parameters(n=obj.n, nth_root=obj.nth_root, q=list(obj.q), p=list(obj.p),
-                             xe=go(obj.xe), xs=go(obj.xs), ring_type=obj.ring_type,
-                             ntt_flag=obj.ntt_flag, default_scale=obj.default_scale,
-                             device=device)
+        out = rp.Parameters(n=obj.n, nth_root=obj.nth_root, q=list(obj.q), p=list(obj.p),
+                            xe=go(obj.xe), xs=go(obj.xs), ring_type=obj.ring_type,
+                            ntt_flag=obj.ntt_flag, default_scale=obj.default_scale,
+                            device=device)
+        if hasattr(obj, "log_default_scale"):  # Matrix-CKKS parameters
+            out.log_default_scale = obj.log_default_scale
+        return out
     if name == "MetaData":
         return el.MetaData(scale=Fraction(obj.scale),
                            log_dimensions=tuple(obj.log_dimensions),

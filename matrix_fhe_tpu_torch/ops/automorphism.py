@@ -1,14 +1,17 @@
 """Galois automorphisms X^i -> X^(i*k) as gathers.
 
 Counterpart of ``matrix_fhe_tpu/ops/automorphism.py`` (ring/automorphism.go)
-for the standard ring: in the NTT domain the automorphism is a pure
-permutation of slots (``automorphism_ntt_index``, :12-34); in the
-coefficient domain a permutation with sign flips (:111-176).  The 3N-ring
-index is not ported yet (ROADMAP A8)."""
+for the three ring types: in the NTT domain the automorphism is a pure
+permutation of slots (``automorphism_ntt_index``, :12-34, for the
+power-of-two rings; ``automorphism_ntt_index_3n``, a permutation of the
+totatives of 3N, for the 3N ring); in the coefficient domain a permutation
+with sign flips (:111-176, the CI ring's through its 2N-degree cover).  The
+reference defines no coefficient-domain automorphism on the 3N ring."""
 
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -33,6 +36,28 @@ def automorphism_ntt_index(n: int, nth_root: int, gal_el: int) -> np.ndarray:
     return idx
 
 
+@functools.lru_cache(maxsize=None)
+def automorphism_ntt_index_3n(n: int, nth_root: int, gal_el: int) -> np.ndarray:
+    """int32 [N] permutation for the NTT-domain automorphism of the 3N ring:
+    the transform evaluates at x_k = omega^E[k] (E the sorted totatives of
+    3N, ring/ntt_3n.go:234-243), and X -> X^g takes the evaluation at x to
+    the one at x^g, a permutation of the totatives."""
+    if math.gcd(gal_el, nth_root) != 1:
+        raise ValueError(f"galois element {gal_el} not coprime to {nth_root}")
+    E = [e for e in range(1, nth_root) if math.gcd(e, nth_root) == 1]
+    pos = {e: k for k, e in enumerate(E)}
+    idx = np.array([pos[(E[i] * gal_el) % nth_root] for i in range(n)], dtype=np.int32)
+    idx.setflags(write=False)  # cached: shared by every caller
+    return idx
+
+
+def ntt_index(ring_type: str, n: int, nth_root: int, gal_el: int) -> np.ndarray:
+    """The NTT-domain permutation of ``gal_el`` on a ring of this type."""
+    if ring_type == "matrix":
+        return automorphism_ntt_index_3n(n, nth_root, gal_el)
+    return automorphism_ntt_index(n, nth_root, gal_el)
+
+
 def _gather(p: torch.Tensor, src: np.ndarray) -> torch.Tensor:
     return p[..., torch.from_numpy(np.asarray(src, dtype=np.int64)).to(p.device)]
 
@@ -45,15 +70,44 @@ def _negate_where(ring, g: torch.Tensor, flip: np.ndarray) -> torch.Tensor:
 
 
 def automorphism_ntt(ring, p: torch.Tensor, gal_el: int) -> torch.Tensor:
-    """NTT-domain automorphism on a standard ring: a gather."""
-    return _gather(p, automorphism_ntt_index(ring.n, ring.nth_root, gal_el))
+    """NTT-domain automorphism: a gather."""
+    return _gather(p, ntt_index(ring.ring_type, ring.n, ring.nth_root, gal_el))
+
+
+@functools.lru_cache(maxsize=None)
+def _ci_coeff_map(n: int, gal_el: int) -> tuple[np.ndarray, np.ndarray]:
+    """(src, flip) of the CI ring's coefficient-domain automorphism, folded
+    through the 2N-degree cover (ring/automorphism.go:122-154)."""
+    two_n = 2 * n
+    mask = two_n - 1
+    logn = mask.bit_length()
+    src = np.zeros(n, dtype=np.int64)
+    flip = np.zeros(n, dtype=np.int64)
+    for i in range(two_n):
+        raw = i * gal_el
+        index = raw & mask
+        tmp = (raw >> logn) & 1
+        if index < n:
+            idx = i
+            if idx >= n:
+                idx = two_n - idx
+                tmp ^= 1
+            src[index] = idx
+            flip[index] = tmp
+    return src, flip
 
 
 def automorphism_coeff(ring, p: torch.Tensor, gal_el: int) -> torch.Tensor:
-    """Coefficient-domain automorphism on a standard ring
-    (ring/automorphism.go:111-176): out[(i*k) mod N] = (-1)^floor(i*k/N) in[i],
-    fully reduced (the reference may leave q for -0)."""
+    """Coefficient-domain automorphism (ring/automorphism.go:111-176), fully
+    reduced (the reference may leave q for -0).  Standard ring:
+    out[(i*k) mod N] = (-1)^floor(i*k/N) in[i]; CI ring: the same on the
+    2N-degree cover, folded back."""
     n = ring.n
+    if ring.ring_type == "conjugate_invariant":
+        src, flip = _ci_coeff_map(n, gal_el)
+        return _negate_where(ring, _gather(p, src), flip)
+    if ring.ring_type != "standard":
+        raise NotImplementedError("automorphism on 3N rings is not defined by the reference")
     i = np.arange(n, dtype=np.uint64)
     raw = i * np.uint64(gal_el)
     dst = (raw & np.uint64(n - 1)).astype(np.int64)

@@ -16,7 +16,15 @@ compute the same function, the negacyclic NTT mod q of the reference
     torch-op butterfly NTT over the ring's Montgomery tables).
 
 ``Ring.ntt``/``intt`` (and so the wide ring's, the keys', the encoder's and
-the u64 evaluator's) call ``ntt_fwd``/``ntt_bwd``.  The kernel is built by
+the u64 evaluator's) call ``ntt_fwd``/``ntt_bwd``.
+
+The conjugate-invariant ring's NTT (``ntt_ci_fwd``/``ntt_ci_bwd``) runs on
+the same kernel: its butterfly stages are the standard ones over a
+re-indexed table of 4N-th roots (``rings._ci_kernel_tables``), and its
+fold by psi (before the forward stages, after the inverse ones, with the
+(2N)^-1 scale) is an elementwise torch op around the launch
+(``rings.ci_fold``); on a CPU tensor both run as torch ops
+(``rings._ntt_ci``/``_intt_ci``).  The kernel is built by
 ``ops/ntt_cuda.py``'s helper into ``matrix_fhe_tpu_torch/_build/``, one
 library for each N (2^4 to 2^16), each at the first use of its N; nothing
 is built or loaded when this module is imported.
@@ -42,9 +50,12 @@ MIN_CLUSTER_N = 1 << 10
 MIN_SPLIT_N = 1 << 13
 LOGNS = range(MIN_N.bit_length() - 1, MAX_N.bit_length())
 
-# Kernel launches since the counts were last reset, by direction.
+# Kernel launches since the counts were last reset, by direction, for the
+# standard ring and for the CI ring.
 fwd_launches = 0
 bwd_launches = 0
+ci_fwd_launches = 0
+ci_bwd_launches = 0
 
 
 def ntt_fwd_plain(x: torch.Tensor, ring) -> torch.Tensor:
@@ -79,9 +90,48 @@ def ntt_bwd(x: torch.Tensor, ring) -> torch.Tensor:
     return out
 
 
-def check_input(x: torch.Tensor, ring) -> None:
-    """Raise unless ``x`` is int64 [..., L, N] for the ring's L limbs of
-    degree N, on the CPU or on a CUDA device."""
+def ntt_ci_fwd_plain(x: torch.Tensor, ring) -> torch.Tensor:
+    """The plain version of the CI ring's forward transform (any device)."""
+    from matrix_fhe_tpu_torch.ops.rings import _ntt_ci
+    return _ntt_ci(x, ring)
+
+
+def ntt_ci_bwd_plain(x: torch.Tensor, ring) -> torch.Tensor:
+    """The plain version of the CI ring's inverse transform (any device)."""
+    from matrix_fhe_tpu_torch.ops.rings import _intt_ci
+    return _intt_ci(x, ring)
+
+
+def ntt_ci_fwd(x: torch.Tensor, ring) -> torch.Tensor:
+    """The CI ring's forward NTT: the fold, then the stages on the kernel."""
+    global ci_fwd_launches
+    from matrix_fhe_tpu_torch.ops.rings import ci_fold
+    check_input(x, ring, "conjugate_invariant")
+    if not x.is_cuda:
+        return ntt_ci_fwd_plain(x, ring)
+    out = launch(ci_fold(x, ring, inverse=False), ring, fwd=True)
+    ci_fwd_launches += 1
+    return out
+
+
+def ntt_ci_bwd(x: torch.Tensor, ring) -> torch.Tensor:
+    """The CI ring's inverse NTT: the stages on the kernel (no scale), then
+    the fold with its (2N)^-1."""
+    global ci_bwd_launches
+    from matrix_fhe_tpu_torch.ops.rings import ci_fold
+    check_input(x, ring, "conjugate_invariant")
+    if not x.is_cuda:
+        return ntt_ci_bwd_plain(x, ring)
+    out = ci_fold(launch(x, ring, fwd=False), ring, inverse=True)
+    ci_bwd_launches += 1
+    return out
+
+
+def check_input(x: torch.Tensor, ring, ring_type: str = "standard") -> None:
+    """Raise unless ``ring`` is of ``ring_type`` and ``x`` is int64
+    [..., L, N] for its L limbs of degree N, on the CPU or on a CUDA device."""
+    if ring.ring_type != ring_type:
+        raise ValueError(f"a {ring.ring_type} ring in the {ring_type} ring's NTT")
     n, L = ring.n, ring.num_limbs
     if x.dtype != torch.int64:
         raise TypeError(f"the u64 NTT takes int64 words, got {x.dtype}")

@@ -6,7 +6,8 @@ draw comes from an explicit ``torch.Generator``.
 """
 
 from matrix_fhe_tpu_torch.rlwe.params import (  # noqa: F401
-    GALOIS_GEN, Parameters, ParametersLiteral, new_parameters)
+    GALOIS_GEN, Parameters, Parameters3NLiteral, ParametersLiteral, new_parameters,
+    new_parameters_3n)
 from matrix_fhe_tpu_torch.rlwe.elements import Ciphertext, MetaData, Plaintext  # noqa: F401
 from matrix_fhe_tpu_torch.rlwe.keys import (  # noqa: F401
     EvaluationKey, GaloisKey, PublicKey, RelinearizationKey, SecretKey,

@@ -1,5 +1,6 @@
 """RLWE evaluator on the u64 path: gadget products, key switching,
-automorphisms, trace.
+automorphisms, trace, on any of the three ring types (the automorphism's
+permutation and the trace's Galois elements depend on the type).
 
 Counterpart of ``matrix_fhe_tpu/rlwe/evaluator.py`` (the reference's
 core/rlwe/evaluator*.go).  Every step is fully reduced, which is
@@ -203,6 +204,8 @@ def trace(params: Parameters, ct: Ciphertext, log_n: int,
     gap = 1 << (params.log_n - log_n - 1)
     if log_n == 0:
         gap <<= 1
+    if params.ring_type == "conjugate_invariant":
+        gap >>= 1
     if gap <= 1:
         return ct
     n_inv = pow(gap, -1, rq.modulus_at_level(level))
@@ -226,6 +229,6 @@ def trace(params: Parameters, ct: Ciphertext, log_n: int,
 def galois_elements_for_trace(params: Parameters, log_n: int) -> list[int]:
     """GaloisElementsForTrace (inner_sum.go:125-151)."""
     els = [params.galois_element(1 << i) for i in range(log_n, params.log_n - 1)]
-    if log_n == 0:
+    if log_n == 0 and params.ring_type == "standard":
         els.append(params.nth_root - 1)
     return els

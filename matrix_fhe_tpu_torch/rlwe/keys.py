@@ -302,8 +302,8 @@ def galois_key_from_samples(params: Parameters, sk: SecretKey, gal_el: int,
     """keygenerator.go:139-174: the gadget re-encrypts from sk to
     pi_{k^-1}(sk); the evaluator then applies pi_k to the result
     (evaluator_automorphism.go:45-52)."""
-    idx = am.automorphism_ntt_index(params.n, params.nth_root,
-                                    params.mod_inv_galois_element(gal_el))
+    idx = am.ntt_index(params.ring_type, params.n, params.nth_root,
+                       params.mod_inv_galois_element(gal_el))
     iidx = torch.from_numpy(idx.astype("int64")).to(params.device)
     sk_out = SecretKey(value=QPPoly(
         q=sk.value.q[..., iidx],

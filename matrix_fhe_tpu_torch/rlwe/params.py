@@ -2,12 +2,14 @@
 tables.
 
 Counterpart of ``matrix_fhe_tpu/rlwe/params.py`` (the reference's
-core/rlwe/params.go) for the standard ring.  Moduli generation mirrors
-GenModuli (params.go:902-950: one NTT-friendly generator per distinct bit
-size, downstream for 61 bits, alternating otherwise), so a literal gives the
-same chain as the JAX package and the reference.  The 3N parameters
-(``Parameters3NLiteral``, ``new_parameters_3n``) are not ported yet
-(ROADMAP A8).
+core/rlwe/params.go and params_3n.go) for the three ring types: the
+standard and the conjugate-invariant ring (``ParametersLiteral``), and the
+fork's 3N ring (``Parameters3NLiteral``, N = 2^order2 3^order3, NthRoot =
+3N).  Moduli generation mirrors GenModuli (params.go:902-950: one
+NTT-friendly generator per distinct bit size, downstream for 61 bits,
+alternating otherwise) and, on the 3N ring, the JAX package's deterministic
+Gen3NModuli (successive primes = 1 mod 3N above 2^bits), so a literal
+gives the same chain as the JAX package.
 """
 
 from __future__ import annotations
@@ -44,6 +46,21 @@ class ParametersLiteral:
     default_scale: float = 1.0
 
 
+@dataclasses.dataclass(frozen=True)
+class Parameters3NLiteral:
+    """core/rlwe/params_3n.go:31-59: N = 2^order2 * 3^order3, NthRoot = 3N."""
+    order2: int
+    order3: int
+    q: tuple[int, ...] | None = None
+    p: tuple[int, ...] | None = None
+    logq: tuple[int, ...] | None = None
+    logp: tuple[int, ...] | None = None
+    xe: smp.DiscreteGaussian = DEFAULT_XE
+    xs: smp.Ternary | smp.DiscreteGaussian = DEFAULT_XS
+    ntt_flag: bool = True
+    default_scale: float = 1.0
+
+
 def gen_moduli(log_nth_root: int, logq: Sequence[int], logp: Sequence[int]
                ) -> tuple[list[int], list[int]]:
     """GenModuli (core/rlwe/params.go:902-950), the same enumeration."""
@@ -55,6 +72,21 @@ def gen_moduli(log_nth_root: int, logq: Sequence[int], logp: Sequence[int]
         g = pr.NTTFriendlyPrimesGenerator(bits, 1 << log_nth_root)
         pools[bits] = (g.next_downstream_primes(count) if bits == 61
                        else g.next_alternating_primes(count))
+    q = [pools[b].pop(0) for b in logq]
+    p = [pools[b].pop(0) for b in logp]
+    return q, p
+
+
+def gen_3n_moduli(n: int, logq: Sequence[int], logp: Sequence[int]
+                  ) -> tuple[list[int], list[int]]:
+    """The 3N moduli chain: for each bit size, successive primes = 1 mod 3N
+    (core/rlwe/params.go:953 Gen3NModuli's semantics, with the JAX
+    package's deterministic enumeration instead of the reference's seeded
+    retry loop)."""
+    sizes: dict[int, int] = {}
+    for b in list(logq) + list(logp):
+        sizes[b] = sizes.get(b, 0) + 1
+    pools = {bits: pr.find_3n_rns_primes(n, bits, count) for bits, count in sizes.items()}
     q = [pools[b].pop(0) for b in logq]
     p = [pools[b].pop(0) for b in logp]
     return q, p
@@ -138,6 +170,8 @@ class Parameters:
 
     def galois_element_inverse(self) -> int:
         """GaloisGen^{-1}: the conjugation element 2N-1 (params.go:683-689)."""
+        if self.ring_type == rg.CONJUGATE_INVARIANT:
+            raise ValueError("undefined for the conjugate-invariant ring")
         return self.nth_root - 1
 
     @functools.cached_property
@@ -148,15 +182,25 @@ class Parameters:
 def new_parameters(lit: ParametersLiteral, device="cuda") -> Parameters:
     """Parameters of a literal, with the rings on ``device`` (the card
     unless told otherwise)."""
-    if lit.ring_type != rg.STANDARD:
-        raise NotImplementedError(
-            f"ring type {lit.ring_type!r} is not ported yet (ROADMAP A8)")
     n = 1 << lit.logn
-    nth_root = 2 * n
+    nth_root = 2 * n if lit.ring_type == rg.STANDARD else 4 * n
     if lit.q is not None:
         q, p = list(lit.q), list(lit.p or ())
     else:
         q, p = gen_moduli(nth_root.bit_length() - 1, lit.logq, lit.logp or ())
     return Parameters(n=n, nth_root=nth_root, q=q, p=p, xe=lit.xe, xs=lit.xs,
                       ring_type=lit.ring_type, ntt_flag=lit.ntt_flag,
+                      default_scale=lit.default_scale, device=device)
+
+
+def new_parameters_3n(lit: Parameters3NLiteral, device="cuda") -> Parameters:
+    """Parameters of a 3N literal, with the rings on ``device`` (the card
+    unless told otherwise)."""
+    n = (1 << lit.order2) * 3 ** lit.order3
+    if lit.q is not None:
+        q, p = list(lit.q), list(lit.p or ())
+    else:
+        q, p = gen_3n_moduli(n, lit.logq, lit.logp or ())
+    return Parameters(n=n, nth_root=3 * n, q=q, p=p, xe=lit.xe, xs=lit.xs,
+                      ring_type=rg.MATRIX, ntt_flag=lit.ntt_flag,
                       default_scale=lit.default_scale, device=device)

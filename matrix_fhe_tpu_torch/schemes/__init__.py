@@ -1,2 +1,2 @@
-"""Schemes over the RLWE core: CKKS so far (``schemes/ckks``).  BGV and
-matrix-CKKS are ROADMAP A8."""
+"""Schemes over the RLWE core: CKKS (``schemes/ckks``) and Matrix-CKKS over
+the 3N ring (``schemes/matrix_ckks``).  BGV is ROADMAP A8."""

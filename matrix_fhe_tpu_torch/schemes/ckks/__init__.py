@@ -1,7 +1,8 @@
-"""CKKS: approximate homomorphic arithmetic over C^{N/2}.
+"""CKKS: approximate homomorphic arithmetic over C^{N/2} (R^N on the CI ring).
 
 Counterpart of ``matrix_fhe_tpu/schemes/ckks`` (the reference's
-schemes/ckks) for the standard ring.
+schemes/ckks) for the standard ring (N/2 complex slots) and the
+conjugate-invariant ring (N real slots).
 """
 
 from matrix_fhe_tpu_torch.schemes.ckks.params import (  # noqa: F401

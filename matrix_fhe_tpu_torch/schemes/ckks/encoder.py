@@ -9,7 +9,9 @@ Decimal with exact big-int rounding (PREC128, encoder.go:325
 embedArbitrary) above; the only device work is one ring NTT / INTT.
 
 Layout (full slots): real parts -> coefficients [0, N/2), imaginary parts
--> [N/2, N) (schemes/ckks/utils.go:128-147), then the forward NTT.
+-> [N/2, N) (schemes/ckks/utils.go:128-147), then the forward NTT.  On the
+conjugate-invariant ring the N slots are real and the special IFFT's real
+parts are the N coefficients (encoder.go:940-946).
 """
 
 from __future__ import annotations
@@ -105,22 +107,37 @@ class Encoder:
             return [vr[p] * ninv for p in perm], [vi[p] * ninv for p in perm]
 
     # -- encode / decode ----------------------------------------------------
-    def _coeffs(self, values, scale: Fraction) -> list[int]:
-        """The rounded integer coefficients of ``values`` at ``scale``."""
+    def _slots(self, values) -> np.ndarray:
+        """``values`` in the full slot vector (real parts on the CI ring)."""
         vals = np.zeros(self.params.max_slots, dtype=np.complex128)
         values = np.asarray(values)
-        vals[: len(values)] = values
+        vals[: len(values)] = np.real(values) if self._ci else values
+        return vals
+
+    @property
+    def _ci(self) -> bool:
+        return self.params.ring_type == "conjugate_invariant"
+
+    def _reals(self, w) -> list:
+        """The coefficients of the special IFFT's output ``w`` (a complex
+        array, or PREC128's pair of lists of Decimals): its real parts, then
+        its imaginary parts except on the CI ring."""
+        re, im = w if isinstance(w, tuple) else (list(np.real(w)), list(np.imag(w)))
+        return re if self._ci else re + im
+
+    def _coeffs(self, values, scale: Fraction) -> list[int]:
+        """The rounded integer coefficients of ``values`` at ``scale``."""
+        vals = self._slots(values)
         if scale > (1 << 50):
             # PREC128: high-precision embed, exact big-int rounding
             from decimal import Decimal
             digits = max(40, int(np.log10(float(scale))) + 25)
-            wr, wi = self._special_ifft_arbitrary(vals, digits)
+            w = self._special_ifft_arbitrary(vals, digits)
             sd = Decimal(scale.numerator) / Decimal(scale.denominator)
             return [int((x * sd).to_integral_value(rounding="ROUND_HALF_EVEN"))
-                    for x in wr + wi]
-        w = self.special_ifft(vals)
+                    for x in self._reals(w)]
         sf = float(scale)
-        return [round(x * sf) for x in np.concatenate([np.real(w), np.imag(w)])]
+        return [round(x * sf) for x in self._reals(self.special_ifft(vals))]
 
     def _limbs(self, coeffs: list[int], moduli) -> torch.Tensor:
         limbs = np.array([[c % q for c in coeffs] for q in moduli], dtype=np.int64)
@@ -145,12 +162,8 @@ class Encoder:
         (schemes/ckks/encoder.go:193 Embed with a ringqp output)."""
         params = self.params
         scale = Fraction(params.default_scale if scale is None else scale)
-        vals = np.zeros(params.max_slots, dtype=np.complex128)
-        values = np.asarray(values)
-        vals[: len(values)] = values
-        w = self.special_ifft(vals)
         sf = float(scale)
-        coeffs = [round(x * sf) for x in np.concatenate([np.real(w), np.imag(w)])]
+        coeffs = [round(x * sf) for x in self._reals(self.special_ifft(self._slots(values)))]
         rq = params.ring_q.at_level(level_q)
         ptq = rq.mform(rq.ntt(self._limbs(coeffs, params.q[: level_q + 1])))
         ptp = None
@@ -171,6 +184,11 @@ class Encoder:
         sf = float(pt.metadata.scale)
         slots = params.max_slots
         re = np.array([float(c) / sf for c in coeffs[:slots]])
+        if self._ci:
+            # [X]/(X^N+1) -> [X+X^-1]/(X^N+1) (encoder.go:940-946)
+            w = re.astype(np.complex128)
+            w[1:] -= 1j * re[slots - 1:0:-1]
+            return self.special_fft(w)
         im = np.array([float(c) / sf for c in coeffs[slots: 2 * slots]])
         return self.special_fft(re + 1j * im)
 

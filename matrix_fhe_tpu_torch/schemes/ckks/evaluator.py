@@ -228,6 +228,11 @@ class Evaluator:
 
         sf = float(scale)
         a, b = round_half(c.real * sf), round_half(c.imag * sf)
+        if self.params.ring_type == "conjugate_invariant":
+            if b:
+                raise ValueError("complex constant undefined on the CI ring")
+            s = [a % q for q in self.params.q[: level + 1]]
+            return s, s
         s0, s1 = [], []
         for q in self.params.q[: level + 1]:
             g, _ = pr.primitive_root(q)
@@ -341,6 +346,8 @@ class Evaluator:
         return self._automorphism(a, self.params.galois_element(k))
 
     def conjugate(self, a: Ciphertext) -> Ciphertext:
+        if self.params.ring_type == "conjugate_invariant":
+            raise ValueError("undefined on the conjugate-invariant ring")
         return self._automorphism(a, self.params.galois_element_inverse())
 
     def _automorphism(self, a: Ciphertext, gal_el: int) -> Ciphertext:

@@ -45,8 +45,9 @@ class CKKSParameters(rlwe.Parameters):
 
     @property
     def max_slots(self) -> int:
-        """N/2 on the standard ring (schemes/ckks/params.go MaxSlots)."""
-        return self.n // 2
+        """N/2 on the standard ring, N on the conjugate-invariant ring
+        (schemes/ckks/params.go MaxSlots)."""
+        return self.n if self.ring_type == rg.CONJUGATE_INVARIANT else self.n // 2
 
     @property
     def log_max_slots(self) -> int:

@@ -1,10 +1,11 @@
 """Host-side prime search and primitive roots (pure Python big ints).
 
-A copy of the parts of ``matrix_fhe_tpu/utils/primes.py`` that the fast
-path needs: exact primality, factoring, the smallest primitive root and the
-NTT-friendly prime generator.  They follow the reference's conventions
-(ring/primes.go, ring/subring.go), so the moduli chains and NTT tables they
-produce are the JAX package's, bit for bit.
+A copy of the parts of ``matrix_fhe_tpu/utils/primes.py`` that the port
+needs: exact primality, factoring, the smallest primitive root, the
+NTT-friendly prime generator, and the 3N ring's primes and primitive roots.
+They follow the reference's conventions (ring/primes.go, ring/primes_3n.go,
+ring/subring.go), so the moduli chains and NTT tables they produce are the
+JAX package's, bit for bit.
 """
 
 from __future__ import annotations
@@ -90,6 +91,53 @@ def primitive_root(q: int, factors: list[int] | None = None) -> tuple[int, list[
                 break
         else:
             return g, factors
+
+
+def find_3n_primitive_root(q: int, nth_root: int, factors: list[int] | None = None
+                           ) -> tuple[int, list[int]]:
+    """The 3N-th primitive root omega = g^((q-1)/3N), g the smallest
+    primitive root: ring/subring.go:253-290's contract (exact order 3N)
+    without its random base, so the tables are reproducible."""
+    if (q - 1) % nth_root != 0:
+        raise ValueError(f"(q-1) not divisible by NthRoot={nth_root}")
+    g, factors = primitive_root(q, factors)
+    omega = pow(g, (q - 1) // nth_root, q)
+    if multiplicative_order(omega, q) != nth_root:
+        raise ValueError("derived omega does not have exact order 3N")
+    return omega, factors
+
+
+def multiplicative_order(g: int, q: int) -> int:
+    """Multiplicative order of g mod the prime q (ring/primes_3n.go:78-90)."""
+    order = q - 1
+    for f in factor(q - 1):
+        while order % f == 0 and pow(g, order // f, q) == 1:
+            order //= f
+    return order
+
+
+def find_3n_rns_primes(n: int, bit_size: int, count: int,
+                       search_budget: int = 1_000_000) -> list[int]:
+    """``count`` primes p = 1 mod 3N from 2^bit_size upward, in steps of 3N
+    (ring/primes_3n.go:11-43).  A "b-bit" 3N prime lies just above 2^b, so
+    b = 61 gives moduli the u64 path refuses (``ops/modmath.py``)."""
+    if n <= 0 or bit_size <= 2 or count <= 0:
+        raise ValueError("invalid args")
+    three_n = 3 * n
+    start = ((((1 << bit_size) - 1) // three_n) + 1) * three_n
+    candidate = start + 1
+    out: list[int] = []
+    steps = 0
+    while steps < search_budget and len(out) < count:
+        if candidate % three_n == 1 and is_prime(candidate) and candidate not in out:
+            out.append(candidate)
+        if candidate > MASK64 - three_n:
+            break
+        candidate += three_n
+        steps += 1
+    if len(out) < count:
+        raise ValueError(f"could not find enough 3N-friendly primes (found {len(out)}/{count})")
+    return out
 
 
 @dataclass

@@ -10,15 +10,19 @@ import torch
 
 from matrix_fhe_tpu_torch import carry, rlwe
 from matrix_fhe_tpu_torch.fast import fckks, fring, frns, wckks, wring, wrns
-from matrix_fhe_tpu_torch.ops import ntt_cuda, ntt_w22, rings, rns_tools
+from matrix_fhe_tpu_torch.ops import ntt_3n, ntt_cuda, ntt_w22, rings, rns_tools
 from matrix_fhe_tpu_torch.rlwe import params as rparams
-from matrix_fhe_tpu_torch.schemes import ckks
+from matrix_fhe_tpu_torch.schemes import ckks, matrix_ckks
+from matrix_fhe_tpu_torch.utils import primes
 
 N = 1 << 5
 Q = ntt_cuda.find_v2_primes(N, 4)
 Q, P = Q[:2], Q[2:]
 W22 = ntt_w22.find_w22_primes(N, 2)
 WIDE = list(wckks.PN14QP438_Q[:2]), list(wckks.PN14QP438_P)
+N3 = 48  # a 3N ring's degree, and its primes
+Q3 = primes.find_3n_rns_primes(N3, 40, 2)
+CI = primes.NTTFriendlyPrimesGenerator(40, 4 * N).next_alternating_primes(2)
 
 
 def _zeros(*shape):
@@ -56,6 +60,18 @@ CONSTRUCTORS = {
     "wckks.make_synthetic_context": lambda: wckks.make_synthetic_context(5, 2, 2)[1][0],
     "carry.carry_wide": lambda: carry.carry_wide(_zeros(2, 2, N), SimpleNamespace(
         q=WIDE[0], p=WIDE[1])),
+    "rings.new_ring(matrix)": lambda: rings.new_ring(N3, Q3, rings.MATRIX).moduli,
+    "rings.new_ring(conjugate_invariant)":
+        lambda: rings.new_ring(N, CI, rings.CONJUGATE_INVARIANT).psi,
+    "ntt_3n.build_tables": lambda: ntt_3n.build_tables(N3, Q3[:1], [
+        primes.find_3n_primitive_root(Q3[0], 3 * N3)[0]]).wr,
+    "rlwe.new_parameters_3n": lambda: rlwe.new_parameters_3n(
+        rlwe.Parameters3NLiteral(order2=4, order3=1, q=tuple(Q3))).ring_q.moduli,
+    "matrix_ckks.new_parameters": lambda: matrix_ckks.new_parameters(
+        matrix_ckks.example_parameters()[0]).ring_q.moduli,
+    "ckks.new_parameters(conjugate_invariant)": lambda: ckks.new_parameters(
+        ckks.CKKSParametersLiteral(logn=5, q=tuple(CI), ring_type=rings.CONJUGATE_INVARIANT)
+        ).ring_q.moduli,
 }
 
 

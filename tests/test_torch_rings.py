@@ -139,9 +139,15 @@ def test_automorphisms_match_jax():
 
 def test_new_ring_refuses_what_it_cannot_hold():
     n = 16
-    for rt in (tr.CONJUGATE_INVARIANT, tr.MATRIX):
-        with pytest.raises(NotImplementedError, match="A8"):
-            tr.new_ring(n, _moduli(n, 30, 1), rt, device="cpu")
+    q = _moduli(n, 30, 1)  # 1 mod 2N, but not mod the CI ring's 4N nor mod 3 * 24
+    with pytest.raises(ValueError, match="NthRoot=64"):
+        tr.new_ring(n, q, tr.CONJUGATE_INVARIANT, device="cpu")
+    with pytest.raises(ValueError, match="NthRoot=72"):
+        tr.new_ring(24, q, tr.MATRIX, device="cpu")
+    with pytest.raises(ValueError, match="2\\^a"):
+        tr.new_ring(10, q, tr.MATRIX, device="cpu")
+    with pytest.raises(ValueError, match="unknown ring type"):
+        tr.new_ring(n, q, "other", device="cpu")
     big = pr.NTTFriendlyPrimesGenerator(62, 2 * n).next_alternating_prime()
     with pytest.raises(ValueError, match="2\\^61"):
         tr.new_ring(n, [big], device="cpu")

@@ -1,6 +1,6 @@
 """Instructions a butterfly of the NTT kernels' passes, from the built SASS.
 
-    python tools/ntt_sass.py [--out PATH] [--b4]
+    python tools/ntt_sass.py [--out PATH] [--b4 | --b5] [--nvcc-flag FLAG ...]
 
 Builds (or loads) the port's kernel libraries (``csrc/ntt.cu``, one for each
 N, through ``ops/ntt_cuda.build()``), disassembles them with
@@ -25,6 +25,17 @@ shared-memory traffic instead: an innermost loop with as many 64-bit
 shared loads as stores, 2^R each, holds R 2^R / 2 butterflies (R <= 3);
 the hot pass is the body with the most butterflies (R = 3: 12), the longest
 of those (``hot_pass64``).
+``--b5``: kernel B5 (``csrc/ntt3n.cu``, ``ntt3n_fwd_kernel``,
+``ntt3n_bwd_kernel``, one library for all N).  Its hot loop is the
+mod-matmul's unrolled chunk of 8 Montgomery MACs with the chunk's
+reduction: the innermost loop with the most shared loads, one a MAC
+(``hot_mac_loop``); its instructions a MAC are the kernel's own cost, held
+beside the 8 multiply-adds a MAC needs (``chip_smoke.py``'s bound).
+``--nvcc-flag FLAG`` (repeatable): build the libraries again with FLAG
+added to the port's flags, into a temporary directory, and print ptxas's
+registers and spills for each kernel beside the as-built ones (a register
+cap such as ``-maxrregcount=64`` shows whether ptxas's own register target
+is what spills).
 The full disassembly goes to ``--out`` (by default beside the libraries, in
 ``matrix_fhe_tpu_torch/_build/``).  Needs the CUDA toolkit (``nvcc``,
 ``cuobjdump``); no GPU and no jax.
@@ -38,6 +49,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
@@ -57,9 +69,13 @@ def _cuobjdump() -> str:
 
 
 def label(mangled: str) -> str:
-    """``ntt_fwd_kernel<14, 1>`` for a mangled kernel name."""
+    """``ntt_fwd_kernel<14, 1>`` (or ``ntt3n_fwd_kernel``) for a mangled
+    kernel name."""
     m = _KERNEL.search(mangled)
-    return f"{m.group(1)}<{m.group(2)}, {m.group(3)}>" if m else mangled
+    if m:
+        return f"{m.group(1)}<{m.group(2)}, {m.group(3)}>"
+    m = re.search(r"ntt3n_(?:fwd|bwd)_kernel", mangled)
+    return m.group(0) if m else mangled
 
 
 def parse(sass: str) -> dict[str, list[tuple[int, str]]]:
@@ -142,6 +158,19 @@ def hot_pass64(instrs: list[tuple[int, str]]) -> tuple[int, int]:
     return best[1], best[0]
 
 
+def hot_mac_loop(instrs: list[tuple[int, str]]) -> tuple[int, int]:
+    """(instructions, MACs) of B5's hot loop (see the module's docstring);
+    (0, 0) if the kernel has none."""
+    best = (0, 0)
+    for lo, hi in loops(instrs):
+        body = [opcode(t) for a, t in instrs if lo <= a <= hi]
+        # x's loads: from shared memory (LDS), or generic (LD) where the
+        # compiler did not see the address space
+        loads = sum(op.startswith("LDS") or op.split(".")[0] == "LD" for op in body)
+        best = max(best, (loads, -len(body)))
+    return -best[1], best[0]
+
+
 def ptxas_report(log: str) -> dict[str, dict[str, int]]:
     """kernel label -> registers and spill bytes, from ``nvcc -Xptxas -v``."""
     out: dict[str, dict[str, int]] = {}
@@ -173,22 +202,48 @@ def build_logs(logns=ntt_cuda.LOGNS, source=ntt_cuda.SOURCE) -> str:
                    for logn in logns)
 
 
+def ptxas_with(logns, source, flags) -> dict[str, dict[str, int]]:
+    """ptxas's registers and spills of ``source`` built for ``logns`` with
+    the port's flags and ``flags``; nothing is kept."""
+    with tempfile.TemporaryDirectory() as tmp:
+        logs = [subprocess.run([ntt_cuda._nvcc(), *ntt_cuda.NVCC_FLAGS, *flags,
+                                f"-DMFHE_NTT_LOGN={logn}", "-o", f"{tmp}/{logn}.so", str(source)],
+                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                               check=True, timeout=600).stdout
+                for logn in logns]
+    return ptxas_report("".join(logs))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=str(ntt_cuda.BUILD_DIR / "ntt_sass.txt"))
     ap.add_argument("--b4", action="store_true", help="kernel B4, csrc/ntt64.cu")
+    ap.add_argument("--b5", action="store_true", help="kernel B5, csrc/ntt3n.cu")
+    ap.add_argument("--nvcc-flag", action="append", default=[],
+                    help="build again with this flag added, and print ptxas's report")
     args = ap.parse_args()
-    from matrix_fhe_tpu_torch.ops import ntt64_cuda
+    from matrix_fhe_tpu_torch.ops import ntt3n_cuda, ntt64_cuda
     source, logns = (ntt64_cuda.SOURCE, ntt64_cuda.LOGNS) if args.b4 else \
+        (ntt3n_cuda.SOURCE, [ntt3n_cuda.BUILD_KEY]) if args.b5 else \
         (ntt_cuda.SOURCE, ntt_cuda.LOGNS)
     sass = disassemble(logns, source)
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(sass)
-    print(f"SASS of {ntt_cuda.library_path(14, source).name} and the other sizes -> {out}")
+    print(f"SASS of {ntt_cuda.library_path(logns[-1], source).name} and the other sizes -> {out}")
     regs = ptxas_report(build_logs(logns, source))
     for name, instrs in sorted(parse(sass).items()):
         r = regs.get(name, {})
+        if args.b5:
+            n, p = hot_mac_loop(instrs)
+            hot = f"hot loop {n} instructions / {p} MACs = {n / p:.2f} a MAC" if p else "no loop"
+            print(f"{name}: {len(instrs)} instructions, {r.get('registers', '?')} registers, "
+                  f"{r.get('spill_bytes', '?')} spill bytes; {hot}")
+            if args.nvcc_flag:
+                w = ptxas_with(logns, source, args.nvcc_flag).get(name, {})
+                print(f"  with {' '.join(args.nvcc_flag)}: {w.get('registers', '?')} registers, "
+                      f"{w.get('spill_bytes', '?')} spill bytes")
+            continue
         n, p = (hot_pass64 if args.b4 else hot_pass)(instrs)
         hot = f"hot pass {n} instructions / {p} butterflies = {n / p:.2f} a butterfly" if p else "no pass"
         print(f"{name}: {len(instrs)} instructions, {r.get('registers', '?')} registers, "

@@ -26,7 +26,8 @@ sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
 MODULES = ("test_torch_polynomial", "test_torch_mod1", "test_torch_lintrans",
            "test_torch_dft", "test_torch_flintrans", "test_torch_fdft",
            "test_torch_bootstrapping", "test_torch_fboot", "test_torch_wring",
-           "test_torch_weval", "test_torch_wboot", "test_torch_comparison_inverse")
+           "test_torch_weval", "test_torch_wboot", "test_torch_comparison_inverse",
+           "test_torch_matrix_ckks", "test_torch_ci")
 
 
 def main() -> None:

@@ -2,7 +2,7 @@
 from the JAX package on the CPU: the references of the floors that phases 8
 and 9 pin (each floor is the figure printed here less 1 bit).
 
-    python tools/port_precision_floor.py [session] [bootstrap]
+    python tools/port_precision_floor.py [session] [bootstrap] [ci]
 
 ``session`` (phase 8): the same session as phase 8's, with JAX's keys and
 random draws in place of the port's: logN = 14, the 19 + 3 primes < 2^23 of
@@ -36,6 +36,14 @@ bootstrap, each decoded and held against what it computes
   encoded one level above the EvalMod level, encrypted with ``key(4)``,
   scaled to the bottom scale and normalized by 1/(K q_diff); held against
   the scaled sine it approximates.
+
+``ci`` (phase 16; a few minutes): CKKS on the conjugate-invariant ring at
+``CI_LITERAL`` (logN 14, 55 + 45x6-bit Q, a 61-bit P, scale 2^45, 16384
+real slots): keys from ``jax.random.key(0)`` split five ways (secret,
+relinearization, galois, the two encryptions); two vectors uniform in
+[-1, 1) from ``default_rng(0)``; mul_relin then rescale, and a rotation by
+one slot of the first (``CI_ROTATION``).  Prints the min and mean L2
+precision (bits) of each.
 """
 
 from __future__ import annotations
@@ -107,6 +115,49 @@ def session() -> None:
     print(f"# logN={LOGN}, {NUM_Q}+{NUM_P} primes < 2^23, scale 2^{LOG_SCALE}, seed {SEED}; "
           f"{time.perf_counter() - t0:.1f} s on {jax.devices()[0].platform}")
     print(f"min precision: product {p_prod:.4f} bits, rotations {p_rot:.4f} bits")
+
+
+CI_LITERAL = dict(logn=14, logq=(55,) + (45,) * 6, logp=(61,), log_default_scale=45,
+                  ring_type="conjugate_invariant")
+CI_ROTATION = 1
+
+
+def ci_vectors(slots: int, seed: int = SEED):
+    rng = np.random.default_rng(seed)
+    return [rng.uniform(-1, 1, slots) for _ in range(2)]
+
+
+def ci_session() -> None:
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    from matrix_fhe_tpu.rlwe import decryptor, encryptor, keys as K
+    from matrix_fhe_tpu.schemes import ckks
+
+    t0 = time.perf_counter()
+    params = ckks.new_parameters(ckks.CKKSParametersLiteral(**CI_LITERAL))
+    ks, kr, kg, k1, k2 = jax.random.split(jax.random.key(SEED), 5)
+    g = params.galois_element(CI_ROTATION)
+    sk = jax.jit(lambda k: K.gen_secret_key(k, params))(ks)
+    rlk = jax.jit(lambda k, s: K.gen_relinearization_key(k, params, s))(kr, sk)
+    gk = jax.jit(lambda k, s: K.gen_galois_key(k, params, s, g))(kg, sk)
+    enc = ckks.Encoder(params)
+    ev = ckks.Evaluator(params, rlk=rlk, galois_keys={g: gk})
+    encrypt = jax.jit(lambda k, s, pt: encryptor.encrypt(k, params, s, pt))
+    v1, v2 = ci_vectors(params.max_slots)
+    ct1 = encrypt(k1, sk, enc.encode(v1))
+    ct2 = encrypt(k2, sk, enc.encode(v2))
+    prod = jax.jit(lambda a, b: ev.rescale(ev.mul_relin(a, b)))(ct1, ct2)
+    rot = jax.jit(lambda a: ev.rotate(a, CI_ROTATION))(ct1)
+
+    def decode(ct):
+        return enc.decode(jax.jit(lambda s, c: decryptor.decrypt(params, s, c))(sk, ct))
+
+    st_p = ckks.precision_stats(v1 * v2, decode(prod))
+    st_r = ckks.precision_stats(np.roll(v1, -CI_ROTATION), decode(rot))
+    print(f"# CI ring: {CI_LITERAL}, {params.max_slots} slots, seed {SEED}; "
+          f"{time.perf_counter() - t0:.1f} s on {jax.devices()[0].platform}")
+    print(f"precision: product min {st_p.min_precision:.4f} mean {st_p.avg_precision:.4f} bits, "
+          f"rotation min {st_r.min_precision:.4f} mean {st_r.avg_precision:.4f} bits")
 
 
 def boot_vector(slots: int, seed: int = SEED):
@@ -186,7 +237,7 @@ def bootstrap_circuits() -> None:
 def main() -> None:
     what = sys.argv[1:] or ["session", "bootstrap"]
     for w in what:
-        {"session": session, "bootstrap": bootstrap_circuits}[w]()
+        {"session": session, "bootstrap": bootstrap_circuits, "ci": ci_session}[w]()
 
 
 if __name__ == "__main__":

@@ -8,6 +8,7 @@ same operands, its outputs must hash to the same values.
 
     python tools/port_reference_digest.py
     python tools/port_reference_digest.py wide [logn]
+    python tools/port_reference_digest.py 3n
 
 * ``mul_relin_rescale(c0, c1, d0, d1)``: sha256 over the little-endian
   int32 bytes of out0, then out1;
@@ -28,6 +29,12 @@ with its Q and with P the two largest 61-bit NTT-friendly primes below
 digests are over the canonical words (``wide.unpack_pair`` of the pairs) as
 little-endian int64, the form of the port's wide ring.  Name shapes after
 ``wide`` to run only those.
+
+``3n``: the 3N ring's factorized NTT (``ops/ntt_3n.py``) at N = 12288 over
+the 7 primes of the Matrix-CKKS literal ``THREE_N`` (its 6 Q primes, then
+its P prime, ``gen_3n_moduli``), forward and inverse on one [2, 7, N]
+input drawn by ``three_n_input`` (numpy, ``SEED``); sha256 of the output
+words as little-endian int64 (~10 s).
 """
 
 from __future__ import annotations
@@ -62,6 +69,44 @@ WIDE_SHAPES = {
     "wide61": lambda wckks: wckks.make_synthetic_context(
         LOGN, 0, 0, moduli=(WIDE61_Q, WIDE61_P), seed=SEED, num_rot=NUM_ROT),
 }
+
+
+# chip_smoke.py phase 15's Matrix-CKKS literal (N = 2^12 3 = 12288)
+THREE_N = dict(order2=12, order3=1, logq=(50, 40, 40, 40, 40, 40), logp=(60,))
+
+
+def three_n_input(moduli, n: int) -> np.ndarray:
+    """[2, L, N] words uniform in [0, q) from ``SEED``, one limb a modulus."""
+    rng = np.random.default_rng(SEED)
+    return np.stack([rng.integers(0, q, (2, n), dtype=np.int64) for q in moduli], axis=-2)
+
+
+def words_digest(arrays) -> str:
+    """sha256 of 64-bit words as little-endian int64."""
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.ascontiguousarray(np.asarray(a).view(np.int64), dtype="<i8").tobytes())
+    return h.hexdigest()
+
+
+def main_3n() -> None:
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    from matrix_fhe_tpu.ops import modmath as mm
+    from matrix_fhe_tpu.ops import rings
+    from matrix_fhe_tpu.rlwe import params as rp
+
+    t0 = time.perf_counter()
+    n = (1 << THREE_N["order2"]) * 3 ** THREE_N["order3"]
+    q, p = rp.gen_3n_moduli(n, THREE_N["logq"], THREE_N["logp"])
+    ring = rings.new_ring(n, q + p, rings.MATRIX)
+    x = mm.u64(three_n_input(q + p, n).astype(np.uint64))
+    fwd = jax.jit(rings.Ring.ntt)(ring, x)
+    bwd = jax.jit(rings.Ring.intt)(ring, x)
+    print(f"# 3N NTT: N {n}, moduli {q + p}, R x C = {ring.ntt3n.rows} x {ring.ntt3n.cols}; "
+          f"{time.perf_counter() - t0:.1f} s on {jax.devices()[0].platform}")
+    print(f'NTT3N_SHA256 = {{"fwd": "{words_digest([np.asarray(fwd)])}",\n'
+          f'                "bwd": "{words_digest([np.asarray(bwd)])}"}}')
 
 
 def wide_digest(pairs, moduli) -> str:
@@ -99,6 +144,9 @@ def main_wide(names) -> None:
 def main() -> None:
     if sys.argv[1:2] == ["wide"]:
         main_wide(sys.argv[2:])
+        return
+    if sys.argv[1:2] == ["3n"]:
+        main_3n()
         return
     import jax
     jax.config.update("jax_platforms", "cpu")

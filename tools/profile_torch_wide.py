@@ -26,7 +26,10 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def profiled(name: str, fn, rows: int, label: str) -> None:
+def profiled(name: str, fn, rows: int, label: str, kernels=(("B4", "ntt64"),)) -> None:
+    """Profile one warm call of fn(): its wall time, kernels, device busy
+    time, and the launches and device time of each (label, name part) of
+    ``kernels``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -36,13 +39,17 @@ def profiled(name: str, fn, rows: int, label: str) -> None:
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.device_time_total for e in kernels)
-    b4 = [e for e in kernels if "ntt64" in e.name]
-    b4_us = sum(e.device_time_total for e in b4)
-    print(f"{name} (profiled): wall {wall_us / 1e3:.1f} ms, {len(kernels)} kernels, device busy "
-          f"{busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}% of wall); B4 {len(b4)} launches, "
-          f"{b4_us / 1e3:.3f} ms ({100 * b4_us / max(busy, 1e-9):.1f}% of device time) | {label}")
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.device_time_total for e in events)
+    parts = []
+    for kernel, tag in kernels:
+        mine = [e for e in events if tag in e.name]
+        us = sum(e.device_time_total for e in mine)
+        parts.append(f"{kernel} {len(mine)} launches, {us / 1e3:.3f} ms "
+                     f"({100 * us / max(busy, 1e-9):.1f}% of device time)")
+    print(f"{name} (profiled): wall {wall_us / 1e3:.1f} ms, {len(events)} kernels, device busy "
+          f"{busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}% of wall); {'; '.join(parts)} "
+          f"| {label}")
     print(prof.key_averages().table(sort_by="device_time_total", row_limit=rows,
                                     max_name_column_width=50))
     torch.cuda.synchronize()
