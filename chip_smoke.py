@@ -138,18 +138,20 @@ plain NTT on the CPU, and its launches there are printed):
     drawn as that test draws them, within its bounds, each equal to the
     same circuit on the CPU with the card's keys.
 
-Then the fork's own rings and kernel B5, the 3N ring's factorized NTT
-(csrc/ntt3n.cu), and the conjugate-invariant (CI) ring over B4:
+Then the fork's own rings and kernel B5, the 3N ring's NTT (csrc/ntt3n.cu,
+a mixed-radix FFT), and the conjugate-invariant (CI) ring over B4's CI mode:
 
 14. B5 alone: at N = 6 (no factorized split: the dense transform runs and
     B5 is launched no time), 48, 96, 1152, 1536, 12288, 24576 and 27648 (the
-    largest the kernel takes) on 45-, 55- and 60-bit 3N primes over
+    largest one CTA holds) on 45-, 55- and 60-bit 3N primes over
     [2, 3, N], bit-identical to its plain version (ops/ntt_3n.py) on the
-    card and, for one row, on the CPU, forward and inverse, and
+    card at the cluster size the wrapper picks and at every size it takes
+    (1, 2, 4, 8) and, for one row, on the CPU, forward and inverse, and
     inverse(forward(x)) == x; at N = 12288 over phase 15's 7 primes, the
     forward and inverse of a numpy-seeded [2, 7, N] input hash to the JAX
-    package's digests (tools/port_reference_digest.py 3n); its hot loop's
-    instructions a MAC, registers and spills (tools/ntt_sass.py --b5); and,
+    package's digests (tools/port_reference_digest.py 3n); the instructions
+    a butterfly of its hot radix-2^k pass and a radix-3 butterfly, registers
+    and spills of each kernel (tools/ntt_sass.py --b5); and,
     after phase 15, bit-identical at every shape phase 15 gave it, with its
     times there (the kernels-line time, the device time queued, L2 flushed,
     the wrapper's host time, the plain version's time) beside the bound;
@@ -173,9 +175,12 @@ Then the fork's own rings and kernel B5, the 3N ring's factorized NTT
     launches on the CI ring at each (the standard ring's none), the min
     precision held to the JAX package's less 1 bit, and the same code on
     the CPU with the card's keys equal to the card's; then B4 on the CI ring
-    (ntt64_cuda.ntt_ci_fwd / ntt_ci_bwd: the fold's torch ops around the
-    launch) bit-identical to its plain version at every shape the session
-    gave it, with its times there (as B5's) beside the bound.
+    (ntt64_cuda.ntt_ci_fwd / ntt_ci_bwd: the kernel's CI mode, the fold in
+    its load and store) bit-identical to its plain version at every shape
+    the session gave it, one kernel a call there (three calls captured
+    into a CUDA graph hold three B4 kernel nodes and nothing else) and no
+    torch operator but the output's allocation (a dispatch mode),
+    with its times there (as B5's) beside the bound.
 
 Prints a JSON line of per-kernel results, one entry per kernel entry point:
 launches on its path (phase 4 for ntt_fwd/ntt_bwd, 6 for the chain, 7 for
@@ -194,8 +199,8 @@ CI ring, with their device, L2-flushed and host times beside; the path's
 shape for the others), and the bound: the larger of the bytes over the
 card's memory rate and the integer operations over its int32 rate (for B4
 and B5, the 32-bit multiply-adds the function needs over the FMA pipe's
-rate: see MULS_FULL; the kernel's own SASS instructions a butterfly or a
-MAC are reported beside it).  Times in that line are CUDA-event
+rate: see MULS_SHOUP and _b5_bound; the kernel's own SASS instructions a
+butterfly are reported beside it).  Times in that line are CUDA-event
 means of launches issued back to back from the host (_event_ms).  No single
 PyTorch call computes a negacyclic NTT mod q, so library_ms is null.  Then, as its last line,
 {"ok": true, "device": {...}}.  Any failed check raises and exits non-zero.
@@ -285,12 +290,9 @@ INT32_OPS_PER_CLOCK_PER_SM = 128
 # products, a 64 x 64 -> 128 product takes 8 (the low and the high half of
 # each of the 4), its low 64 bits 4, its high 64 bits 7 (the lowest half
 # only carries).  A product by a fixed table word in Shoup form is a high
-# half (the quotient) and two low halves (w x - quotient q); a Montgomery
-# reduction of a 128-bit sum is a low half (m = lo q^-1) and a high half
-# (m q); a Montgomery MAC sums the whole product into 128 bits.
-MULS_FULL, MULS_LO, MULS_HI = 8, 4, 7
+# half (the quotient) and two low halves (w x - quotient q).
+MULS_LO, MULS_HI = 4, 7
 MULS_SHOUP = MULS_HI + 2 * MULS_LO
-MULS_REDC = MULS_LO + MULS_HI
 # Phases 10-13, the wide path and kernel B4 (csrc/ntt64.cu): the TPU
 # transform it replaces (wide_ntt.ntt_fwd / ntt_bwd, XLA int8 matmuls, not a
 # pl.pallas_call), the sizes phase 10 checks it at, and bench.py's two wide
@@ -1364,26 +1366,57 @@ def b5_shapes(fn, seen: dict):
     return _shapes_in(ntt3n_cuda, fn, seen)
 
 
-def _b5_bound(rows: int, limbs: int, n: int, int32_ops_per_s):
-    """(bytes time, operations time) in ms of one B5 transform of ``rows``
-    (row, limb) pairs over ``limbs`` limbs: 8 B a word in and out and a
-    word of the [R, R], [C, C] and [R, C] tables of each limb; for each of
-    a (row, limb)'s two branches of M = R C words, the two contractions'
-    M (R + C) Montgomery MACs and 2M reductions, and 3M products by table
-    words (forward: fold, twist, twiddle; inverse: twiddle, untwist and the
-    CRT solve), in multiply-adds on the FMA pipe."""
+def _b5_roots(n: int, fwd: bool) -> int:
+    """The distinct constants other than 1 one limb's B5 transform of degree
+    N multiplies by: for M = N/2, the twists omega^j and omega^-j (j < M;
+    the inverse's scaled by M^-1), each stage's twiddles omega_Ms^(j t)
+    (the radix-r stage of block size Ms: t < r, j < Ms/r; omega_Ms =
+    omega^(6M/Ms)), z = omega^M and the cube root omega^(+-2M) in the
+    radix-3 butterfly, and the inverse's (z - z^5)^-1.  Exponents of omega
+    are taken mod 3N, so a twiddle that equals a twist counts once."""
     from matrix_fhe_tpu_torch.ops import ntt_3n
-    r, c = ntt_3n.split_rc(n // 2)
-    m = r * c
-    nbytes = 8 * n * 2 * rows + 8 * limbs * (r * r + c * c + r * c)
-    muls = rows * 2 * m * ((r + c) * MULS_FULL + 2 * MULS_REDC + 3 * MULS_SHOUP)
-    return nbytes / HBM_BYTES_PER_S * 1e3, muls / (int32_ops_per_s / 2) * 1e3
+    lay = ntt_3n.kernel_layout(n)
+    m, p, sign = lay["m"], lay["p"], 1 if fwd else -1
+    twists = {("w" if fwd else "s", e * j % (6 * m)) for j in range(m) for e in (1, -1)}
+    roots = {sign * 6 * (m // ms) * j * t % (6 * m)
+             for i, ms in enumerate(lay["blocks"]) for t in range(1, 2 if i < p else 3)
+             for j in range(ms // (2 if i < p else 3))}
+    roots |= {m, sign * 2 * m % (6 * m)} if lay["b"] else {m}
+    vals = twists | {("w", e) for e in roots} | (set() if fwd else {("crt", 0)})
+    return len(vals - {("w", 0)})
+
+
+def _b5_bound(rows: int, limbs: int, n: int, fwd: bool, int32_ops_per_s):
+    """(bytes time, operations time) in ms of one B5 transform of ``rows``
+    (row, limb) pairs over ``limbs`` limbs, from the mixed-radix transform.
+    Operations: its products by a constant other than 1, each a Shoup
+    product (MULS_SHOUP multiply-adds on the FMA pipe).  For each of a
+    (row, limb)'s two branches of M = N/2 = 2^p 3^b words, the radix-2
+    stage of block size Ms takes (M/Ms)(Ms/2 - 1) (twiddle omega_Ms^j,
+    j >= 1) and the radix-3 stage M/3 (the cube root, once a butterfly) +
+    2 (M/Ms)(Ms/3 - 1) (omega_Ms^j and omega_Ms^2j, j >= 1); for each
+    j < M, the fold and the two twists (forward: 3, less the two twists
+    by 1 at j = 0) or the two untwists and the CRT solve ((z - z^5)^-1
+    and z; inverse: 4):
+        rows (2 sum_stages + (3 M - 2 | 4 M)) MULS_SHOUP / (FMA rate).
+    Bytes: 8 B a word in and out, and 8 B each distinct constant of a limb
+    (``_b5_roots``), read once; no Shoup quotient, no copy."""
+    from matrix_fhe_tpu_torch.ops import ntt_3n
+    lay = ntt_3n.kernel_layout(n)
+    m, p = lay["m"], lay["p"]
+    stages = sum((m // ms) * (ms // 2 - 1) if i < p else m // 3 + 2 * (m // ms) * (ms // 3 - 1)
+                 for i, ms in enumerate(lay["blocks"]))
+    nbytes = 8 * n * 2 * rows + 8 * _b5_roots(n, fwd) * limbs
+    products = 2 * stages + (3 * m - 2 if fwd else 4 * m)
+    return (nbytes / HBM_BYTES_PER_S * 1e3,
+            rows * products * MULS_SHOUP / (int32_ops_per_s / 2) * 1e3)
 
 
 def check_b5_sizes(dev, rng) -> list:
     """B5 against its plain version at every size of B5_SIZES (three primes
-    of 45, 55 and 60 bits, [2, 3, N]), on the card and, for one row, on the
-    CPU; N = 6 runs the dense transform with no launch.  One row a size."""
+    of 45, 55 and 60 bits, [2, 3, N]), on the card at the cluster size the
+    wrapper picks and at every size it takes, and, for one row, on the CPU;
+    N = 6 runs the dense transform with no launch.  One row a size."""
     from matrix_fhe_tpu_torch.ops import ntt3n_cuda, rings
     from matrix_fhe_tpu_torch.utils import primes as pr
     out = []
@@ -1400,12 +1433,15 @@ def check_b5_sizes(dev, rng) -> list:
             err = int((f.cpu() != cpu.ntt(x_cpu)).sum() + (b.cpu() != cpu.intt(x_cpu)).sum())
         else:
             assert counts == {"fwd": 1, "bwd": 1}, (n, counts)
-            err += int((f != ntt3n_cuda.ntt_fwd_plain(x, ring)).sum())
-            err += int((b != ntt3n_cuda.ntt_bwd_plain(x, ring)).sum())
+            want_f, want_b = ntt3n_cuda.ntt_fwd_plain(x, ring), ntt3n_cuda.ntt_bwd_plain(x, ring)
+            err += int((f != want_f).sum()) + int((b != want_b).sum())
+            for c in ntt3n_cuda.clusters(n):
+                err += int((ntt3n_cuda.launch(x, ring, True, c) != want_f).sum())
+                err += int((ntt3n_cuda.launch(x, ring, False, c) != want_b).sum())
             err += int((f[0].cpu() != ntt3n_cuda.ntt_fwd_plain(x_cpu[0], cpu)).sum())
             err += int((b[0].cpu() != ntt3n_cuda.ntt_bwd_plain(x_cpu[0], cpu)).sum())
         assert torch.equal(ring.intt(f), x), f"B5 N={n}: inverse(forward(x)) != x"
-        out.append((n, ring.ntt3n and (ring.ntt3n.rows, ring.ntt3n.cols), counts, err))
+        out.append((n, ring.ntt3n is not None and ntt3n_cuda.clusters(n), counts, err))
     return out
 
 
@@ -1423,16 +1459,22 @@ def check_b5_shapes(shapes: dict, dev, rng) -> list:
 
 
 def check_ci_shapes(shapes: dict, dev, rng) -> list:
-    """B4 on the CI ring (``ntt_ci_fwd``/``ntt_ci_bwd``: the fold as torch
-    ops around the launch) against its plain version on the card at each
-    recorded shape: (direction, shape, mismatched words, ring)."""
+    """B4 on the CI ring (``ntt_ci_fwd``/``ntt_ci_bwd``: the kernel's CI
+    mode, the fold inside) against its plain version on the card at each
+    recorded shape; the kernels of three calls captured into a CUDA graph
+    (one B4 launch each) and the torch operators a call dispatches (the
+    output's allocation alone): (direction, shape, mismatched words, ring,
+    kernels, ops)."""
     from matrix_fhe_tpu_torch.ops import ntt64_cuda
+    from matrix_fhe_tpu_torch.utils import launches
     rows = []
     for (d, shape, _), ring in sorted(shapes.items(), key=lambda kv: (kv[0][1], kv[0][0])):
         kern = ntt64_cuda.ntt_ci_fwd if d == "fwd" else ntt64_cuda.ntt_ci_bwd
         plain = ntt64_cuda.ntt_ci_fwd_plain if d == "fwd" else ntt64_cuda.ntt_ci_bwd_plain
         x = _words(rng, shape[:-2], ring.moduli_tuple, shape[-1]).to(dev)
-        rows.append((d, shape, int((kern(x, ring) != plain(x, ring)).sum()), ring))
+        rows.append((d, shape, int((kern(x, ring) != plain(x, ring)).sum()), ring,
+                     launches.graph_kernels(lambda: kern(x, ring)),
+                     launches.torch_ops(lambda: kern(x, ring))))
     return rows
 
 
@@ -1572,18 +1614,23 @@ def ci_session(dev, times: dict, keys=None) -> dict:
 def matrix_phases(dev, smi: str, rng, int32_ops_per_s: float) -> dict:
     """Phases 14-16 (see the module's docstring); returns what the kernels
     line reports of B5 and of B4 on the CI ring."""
-    from matrix_fhe_tpu_torch.ops import ntt3n_cuda, ntt64_cuda, rings
+    from matrix_fhe_tpu_torch.ops import ntt3n_cuda, ntt64_cuda, ntt_3n, rings
     from matrix_fhe_tpu_torch.rlwe import params as rparams
     from tools import ntt_sass
     from tools.port_reference_digest import THREE_N, three_n_input, words_digest
 
     # -- 14. B5 alone ------------------------------------------------------------------
     max_err = 0
-    for n, rc, counts, err in check_b5_sizes(dev, rng):
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for n, cs, counts, err in check_b5_sizes(dev, rng):
         max_err = max(max_err, err)
         assert err == 0, f"B5 N={n}: kernel != plain ({err} words)"
-        what = f"R x C = {rc[0]} x {rc[1]}, launches {counts}" if rc else \
-            f"dense transform, no launch {counts}"
+        if cs:
+            p, b = ntt_3n.radix_counts(n // 2)
+            what = (f"M = 2^{p} 3^{b}, launches {counts}, C = {ntt3n_cuda.geometry(6, n, sms)} "
+                    f"picked, every C of {list(cs)} checked")
+        else:
+            what = f"dense transform, no launch {counts}"
         print(f"phase b5: N {n:6d} [2, 3, N]: {what}; kernel == plain (card, and CPU for one "
               f"row), inverse(forward(x)) == x")
     n = (1 << THREE_N["order2"]) * 3 ** THREE_N["order3"]
@@ -1597,16 +1644,21 @@ def matrix_phases(dev, smi: str, rng, int32_ops_per_s: float) -> dict:
           f"inverse hash to the JAX package's digests (tools/port_reference_digest.py 3n)")
     funcs = ntt_sass.parse(ntt_sass.disassemble([ntt3n_cuda.BUILD_KEY], ntt3n_cuda.SOURCE))
     regs = ntt_sass.ptxas_report(ntt_sass.build_logs([ntt3n_cuda.BUILD_KEY], ntt3n_cuda.SOURCE))
-    per_mac = {}
+    per_fly = {}
+    path_c = ntt3n_cuda.geometry(6, 12288, sms)
     for d in ("fwd", "bwd"):
-        name = f"ntt3n_{d}_kernel"
-        instrs, macs = ntt_sass.hot_mac_loop(funcs[name])
-        assert macs, f"{name}: no MAC loop found in its SASS"
-        per_mac[d] = instrs / macs
-        print(f"phase b5: {name} hot loop {instrs} instructions / {macs} MACs = "
-              f"{per_mac[d]:.2f} a MAC (the bound counts the {MULS_FULL} multiply-adds a MAC "
-              f"needs); {regs[name]['registers']} registers, {regs[name]['spill_bytes']} spill "
-              f"bytes")
+        for c in ntt3n_cuda.CLUSTERS:
+            name = f"ntt3n_{d}_kernel<{c}>"
+            passes = ntt_sass.b5_passes(funcs[name])
+            assert all(f for _, f in passes.values()), f"{name}: a pass not found in its SASS"
+            if c == path_c:
+                per_fly[d] = {k: n_ / f for k, (n_, f) in passes.items()}
+            print(f"phase b5: {name}: hot radix-2^k pass {passes['radix-2^k'][0]} instructions "
+                  f"/ {passes['radix-2^k'][1]} butterflies = "
+                  f"{passes['radix-2^k'][0] / passes['radix-2^k'][1]:.2f} a butterfly, radix-3 "
+                  f"pass {passes['radix-3'][0]} instructions a radix-3 butterfly (the bound "
+                  f"counts the {MULS_SHOUP} multiply-adds of each Shoup product); "
+                  f"{regs[name]['registers']} registers, {regs[name]['spill_bytes']} spill bytes")
 
     # -- 15. Matrix-CKKS at N = 12288 ---------------------------------------------------
     torch.cuda.synchronize()
@@ -1663,19 +1715,21 @@ def matrix_phases(dev, smi: str, rng, int32_ops_per_s: float) -> dict:
     for d, shape, err, r in shape_rows:
         assert err == 0, f"B5 {d} {shape}: kernel != plain ({err})"
         t = time_b5(d, shape, r, dev, rng, flush)
-        b = _b5_bound(int(np.prod(shape[:-1])), shape[-2], shape[-1], int32_ops_per_s)
+        rows_n = int(np.prod(shape[:-1]))
+        b = _b5_bound(rows_n, shape[-2], shape[-1], d == "fwd", int32_ops_per_s)
         bounds[d].append(b)
         stats[d]["ms"] += t["ms"]
         stats[d]["plain_ms"] += t["plain_ms"]
         for k in extra[d]:
             extra[d][k] += t[k]
-        print(f"phase b5: {d} {str(list(shape)):18s} kernel {t['ms']:.4f} ms, device queued "
+        print(f"phase b5: {d} {str(list(shape)):18s} C={ntt3n_cuda.geometry(rows_n, shape[-1], sms)}"
+              f" kernel {t['ms']:.4f} ms, device queued "
               f"{t['device']:.4f} ms, L2 flushed {t['flushed']:.4f} ms, host {t['host']:.4f} ms "
               f"a call | plain {t['plain_ms']:.4f} ms | bound bytes {b[0] * 1e3:.3f} us, "
               f"operations {b[1] * 1e3:.3f} us | {smi}")
     del flush
     for d in ("fwd", "bwd"):
-        stats[d].update(_bound_entry(bounds[d]), sass_instructions_a_mac=per_mac[d],
+        stats[d].update(_bound_entry(bounds[d]), sass_instructions_a_butterfly=per_fly[d],
                         **{f"{k}_ms": v for k, v in extra[d].items()})
         print(f"phase b5: phase 15's {len(bounds[d])} {d} shapes, kernel == plain at each; summed: "
               f"kernel {stats[d]['ms']:.4f} ms, device queued {extra[d]['device']:.4f} ms, L2 "
@@ -1717,8 +1771,12 @@ def matrix_phases(dev, smi: str, rng, int32_ops_per_s: float) -> dict:
     ci_stats = {d: {"max_abs_err": 0, "ms": 0.0, "plain_ms": 0.0} for d in ("fwd", "bwd")}
     ci_extra = {d: {"device": 0.0, "flushed": 0.0, "host": 0.0} for d in ("fwd", "bwd")}
     ci_bounds = {"fwd": [], "bwd": []}
-    for d, shape, err, r in check_ci_shapes(ci_seen, dev, rng):
+    for d, shape, err, r, names, ops in check_ci_shapes(ci_seen, dev, rng):
         assert err == 0, f"B4 on the CI ring {d} {shape}: kernel != plain ({err})"
+        assert len(names) == 3 and all("ntt64" in k for k in names), \
+            f"B4 on the CI ring {d} {shape}: three calls ran {names}, not one B4 launch each"
+        assert ops == ["aten.empty_like.default"], \
+            f"B4 on the CI ring {d} {shape}: a call ran the torch ops {ops}"
         t = _time_in(ntt64_cuda, d, shape, r, dev, rng, flush, names=CI_ENTRIES)
         b = _b4_bound(int(np.prod(shape[:-1])), shape[-2], shape[-1], d == "fwd",
                       int32_ops_per_s, ci=True)
@@ -1727,7 +1785,8 @@ def matrix_phases(dev, smi: str, rng, int32_ops_per_s: float) -> dict:
         ci_stats[d]["plain_ms"] += t["plain_ms"]
         for k in ci_extra[d]:
             ci_extra[d][k] += t[k]
-        print(f"phase ci: B4 on the CI ring {d} {str(list(shape)):18s} kernel {t['ms']:.4f} ms, "
+        print(f"phase ci: B4 on the CI ring {d} {str(list(shape)):18s} one kernel a call "
+              f"({names[0]}; no torch op but the output's allocation), kernel {t['ms']:.4f} ms, "
               f"device queued {t['device']:.4f} ms, L2 flushed {t['flushed']:.4f} ms, host "
               f"{t['host']:.4f} ms a call | plain {t['plain_ms']:.4f} ms | bound bytes "
               f"{b[0] * 1e3:.3f} us, operations {b[1] * 1e3:.3f} us | {smi}")
@@ -1736,7 +1795,7 @@ def matrix_phases(dev, smi: str, rng, int32_ops_per_s: float) -> dict:
         ci_stats[d].update(_bound_entry(ci_bounds[d]),
                            **{f"{k}_ms": v for k, v in ci_extra[d].items()})
         print(f"phase ci: phase 16's {len(ci_bounds[d])} {d} shapes of B4 on the CI ring (the "
-              f"fold's torch ops included), kernel == plain at each; summed: kernel "
+              f"fold in the launch), kernel == plain at each; summed: kernel "
               f"{ci_stats[d]['ms']:.4f} ms, device queued {ci_extra[d]['device']:.4f} ms, L2 "
               f"flushed {ci_extra[d]['flushed']:.4f} ms, host {ci_extra[d]['host']:.4f} ms, plain "
               f"{ci_stats[d]['plain_ms']:.4f} ms, bound {ci_stats[d]['bound_ms']:.4f} ms by "

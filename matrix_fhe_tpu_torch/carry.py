@@ -7,9 +7,11 @@ relinearization, galois and evaluation keys, in both gadget flavours),
 ciphertexts and plaintexts with their metadata, the bootstrapping
 parameters, literal and evaluation keys (the encapsulation keys included),
 the 3N ring's literals (RLWE and Matrix-CKKS) and its factorized NTT
-tables, and dicts, lists and tuples of them.  It works by the class name and the field names the two packages
-share, so it imports nothing of the JAX package; any object with those
-fields as numpy arrays is carried the same way.  64-bit words keep their
+tables (with kernel B5's, rebuilt from each limb's modulus and root, which
+its twist row gives back), and dicts, lists and tuples of them.  It works
+by the class name and the field names the two packages share, so it
+imports nothing of the JAX package; any object with those fields as numpy
+arrays is carried the same way.  64-bit words keep their
 bits (uint64 arrays are viewed as int64, the port's word type); int32
 fast-path limbs stay int32.
 
@@ -107,11 +109,16 @@ def carry(obj, device="cuda"):
     if name == "MatrixCKKSParametersLiteral":
         return _literal(mc.MatrixCKKSParametersLiteral, obj)
     if name == "NTT3NTables":
+        # the JAX tables hold no moduli: each limb's q and omega are read
+        # back from its twist row, and kernel B5's tables built from them
+        perm = np.asarray(obj.perm, dtype=np.int64)
+        moduli, omegas = zip(*(ntt_3n.modulus_and_root(row) for row in np.asarray(obj.tw1)))
         return ntt_3n.NTT3NTables(
             n=int(obj.n), rows=int(obj.rows), cols=int(obj.cols),
             **{f: words(getattr(obj, f)) for f in ntt_3n.LIMB_FIELDS},
             **{f: torch.from_numpy(np.asarray(getattr(obj, f), dtype=np.int64)).to(device)
-               for f in ("perm", "iperm")})
+               for f in ("perm", "iperm")},
+            **ntt_3n.kernel_tables(int(obj.n), moduli, omegas, perm.tolist(), device))
     if name == "CKKSParameters":
         return cp.new_parameters(cp.CKKSParametersLiteral(
             logn=obj.n.bit_length() - 1, q=tuple(obj.q), p=tuple(obj.p),

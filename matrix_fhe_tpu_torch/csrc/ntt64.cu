@@ -39,6 +39,22 @@
 //     __umul64hi, exact in unsigned 64-bit arithmetic; one reduction to
 //     [0, q) at the store.
 //
+// The CI mode (entries mfhe_ntt64_ci_fwd / _bwd): the NTT of the
+// conjugate-invariant ring Z_q[X + X^-1]/(X^2N + 1), which replaces
+// matrix_fhe_tpu/ops/rings.py:_ntt_ci / _intt_ci (XLA ops): a fold
+// y[j] = x[j] - F x[N - j] (j >= 1) before the standard stages (over the
+// ring's re-indexed table of 4N-th roots, ops/rings.py:_ci_kernel_tables),
+// and after the inverse stages out[j] = (2N)^-1 (y[j] - F y[N - j]),
+// out[0] = (2N)^-1 2 y[0], with F = psi^N forward and psi^-N inverse.  The
+// fold is fused into the load (forward) and the store (inverse), so a CI
+// transform is one launch.  Both words of a fold are read in one thread:
+// without a cluster a thread takes words j and N - j; with one, it takes
+// the bases b and NL - b of the radix-C pass, whose words b + k NL and
+// (NL - b) + (C - 1 - k) NL are each other's partners (for b = 0, k NL and
+// (C - k) NL), so no exchange beyond the radix-C pass's own is needed.  The
+// standard mode's kernels are unchanged (the CI code is compiled out of
+// them).
+//
 // All arithmetic is unsigned: signed overflow is undefined in CUDA C.
 // The kernels allocate nothing and launch on the caller's stream.
 
@@ -182,7 +198,8 @@ struct Row {
   const u64* __restrict__ w;   // the limb's twiddles (psi or psi^-1), plain
   const u64* __restrict__ ws;  // and their Shoup quotients
   u64 q;
-  u64 ni, ni_shoup;            // N^-1 (inverse only)
+  u64 ni, ni_shoup;            // N^-1 (inverse only); (2N)^-1 in the CI mode
+  u64 f, f_shoup;              // the CI mode's fold factor psi^N (psi^-N inverse)
   uint32_t rank;               // CTA rank in the cluster
 };
 
@@ -235,14 +252,15 @@ __device__ __forceinline__ void fwd_local(u64* a, const Row& r) {
 }
 
 // Inverse local passes, last stage first, down to local stage 0.  Without a
-// cluster the pass holding stage 0 also applies N^-1.
-template <int LOGNL, int C, int END = LOGNL>
+// cluster the pass holding stage 0 also applies N^-1 (SCALE: not in the CI
+// mode, whose fold scales on store).
+template <int LOGNL, int C, bool SCALE, int END = LOGNL>
 __device__ __forceinline__ void bwd_local(u64* a, const Row& r) {
   if constexpr (END > 0) {
     constexpr int R = pass_to(LOGNL, END);
-    local_pass<LOGNL, C, END - R, R, false, C == 1 && END == R>(a, r);
+    local_pass<LOGNL, C, END - R, R, false, SCALE && C == 1 && END == R>(a, r);
     __syncthreads();
-    bwd_local<LOGNL, C, END - R>(a, r);
+    bwd_local<LOGNL, C, SCALE, END - R>(a, r);
   }
 }
 
@@ -300,6 +318,117 @@ __device__ __forceinline__ void bwd_cross(u64* const (&part)[C], u64* __restrict
   }
 }
 
+// The CI mode's fold of word x under partner word y: x - F y, in (0, 3q)
+// for x, y < q (forward, on load), or (2N)^-1 (x - F y) in [0, q) for
+// x, y < 2q (inverse, on store).
+__device__ __forceinline__ u64 fold_load(u64 x, u64 y, const Row& r) {
+  return x + 2 * r.q - shoup_mul(y, r.f, r.f_shoup, r.q);
+}
+
+__device__ __forceinline__ u64 fold_store(u64 x, u64 y, const Row& r) {
+  const u64 v = x + 2 * r.q - shoup_mul(y, r.f, r.f_shoup, r.q);
+  return csub(shoup_mul(v, r.ni, r.ni_shoup, r.q), r.q);
+}
+
+__device__ __forceinline__ u64 fold_store0(u64 x, const Row& r) {
+  return csub(shoup_mul(x + x, r.ni, r.ni_shoup, r.q), r.q);
+}
+
+// The bases of the CI mode's cross passes: this CTA's share of the pairs
+// (b, NL - b), b <= NL/2 (the last rank also takes NL/2).
+template <int LOGNL, int C>
+__device__ __forceinline__ uint32_t ci_first(const Row& r) {
+  return r.rank * ((1u << LOGNL) / (2 * C));
+}
+
+template <int LOGNL, int C>
+__device__ __forceinline__ uint32_t ci_last(const Row& r) {
+  return (r.rank + 1) * ((1u << LOGNL) / (2 * C)) + (r.rank == C - 1);
+}
+
+// Forward, CI mode (C > 1): the fold on load, then the radix-C pass, for
+// the pair of bases b and b2 = NL - b.
+template <int LOGNL, int C>
+__device__ __forceinline__ void fwd_cross_ci(u64* const (&part)[C], const u64* __restrict__ src,
+                                             const Row& r) {
+  constexpr int LC = log2i(C);
+  constexpr int NL = 1 << LOGNL;
+  constexpr int T = threads_for(LOGNL);
+  u64 t[C], ts[C];
+  load_twiddles<LC>(t, r.w, 1);
+  load_twiddles<LC>(ts, r.ws, 1);
+#pragma unroll 1
+  for (uint32_t b = ci_first<LOGNL, C>(r) + threadIdx.x; b < ci_last<LOGNL, C>(r); b += T) {
+    const uint32_t b2 = (NL - b) & (NL - 1);
+    u64 xa[C], xb[C], ya[C], yb[C];
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      xa[k] = __ldg(src + b + k * NL);
+      xb[k] = __ldg(src + b2 + k * NL);
+    }
+    if (b == 0) {
+      ya[0] = xa[0];
+#pragma unroll
+      for (int k = 1; k < C; ++k) ya[k] = fold_load(xa[k], xa[C - k], r);
+    } else {
+#pragma unroll
+      for (int k = 0; k < C; ++k) {
+        ya[k] = fold_load(xa[k], xb[C - 1 - k], r);
+        yb[k] = fold_load(xb[k], xa[C - 1 - k], r);
+      }
+    }
+    fwd_radix<LC>(ya, t, ts, r.q);
+#pragma unroll
+    for (int k = 0; k < C; ++k) part[k][phys(b)] = ya[k];
+    if (b2 != b) {
+      fwd_radix<LC>(yb, t, ts, r.q);
+#pragma unroll
+      for (int k = 0; k < C; ++k) part[k][phys(b2)] = yb[k];
+    }
+  }
+}
+
+// Inverse, CI mode (C > 1): the radix-C pass for the pair of bases b and
+// NL - b, then the fold with (2N)^-1, reduced to [0, q), into device memory.
+template <int LOGNL, int C>
+__device__ __forceinline__ void bwd_cross_ci(u64* const (&part)[C], u64* __restrict__ dst,
+                                             const Row& r) {
+  constexpr int LC = log2i(C);
+  constexpr int NL = 1 << LOGNL;
+  constexpr int T = threads_for(LOGNL);
+  u64 t[C], ts[C];
+  load_twiddles<LC>(t, r.w, 1);
+  load_twiddles<LC>(ts, r.ws, 1);
+#pragma unroll 1
+  for (uint32_t b = ci_first<LOGNL, C>(r) + threadIdx.x; b < ci_last<LOGNL, C>(r); b += T) {
+    const uint32_t b2 = (NL - b) & (NL - 1);
+    u64 ya[C], yb[C];
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      ya[k] = part[k][phys(b)];
+      yb[k] = part[k][phys(b2)];
+    }
+    bwd_radix<LC>(ya, t, ts, r.q);
+    if (b == 0) {
+      dst[0] = fold_store0(ya[0], r);
+#pragma unroll
+      for (int k = 1; k < C; ++k) dst[k * NL] = fold_store(ya[k], ya[C - k], r);
+      continue;
+    }
+    if (b2 != b) {
+      bwd_radix<LC>(yb, t, ts, r.q);
+    } else {
+#pragma unroll
+      for (int k = 0; k < C; ++k) yb[k] = ya[k];
+    }
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      dst[b + k * NL] = fold_store(ya[k], yb[C - 1 - k], r);
+      if (b2 != b) dst[b2 + k * NL] = fold_store(yb[k], ya[C - 1 - k], r);
+    }
+  }
+}
+
 template <int C>
 __device__ __forceinline__ void cluster_sync() {
   if constexpr (C > 1) {
@@ -321,7 +450,7 @@ __device__ __forceinline__ Row row_state(const u64* w, const u64* ws, const u64*
   r.q = moduli[limb];
   r.w = w + (static_cast<size_t>(limb) << LOGN);
   r.ws = ws + (static_cast<size_t>(limb) << LOGN);
-  r.ni = r.ni_shoup = 0;
+  r.ni = r.ni_shoup = r.f = r.f_shoup = 0;
   r.rank = 0;
   if constexpr (C > 1) r.rank = cg::this_cluster().block_rank();
   return r;
@@ -339,24 +468,45 @@ __device__ __forceinline__ void map_parts(u64* (&part)[C], u64* a) {
   }
 }
 
-template <int LOGN, int C>
+template <int LOGN, int C, bool CI>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 ntt64_fwd_kernel(const u64* __restrict__ in, u64* __restrict__ out, const u64* __restrict__ psi,
-                 const u64* __restrict__ psi_shoup, const u64* __restrict__ moduli, int limbs) {
+                 const u64* __restrict__ psi_shoup, const u64* __restrict__ moduli,
+                 const u64* __restrict__ fold, int limbs) {
   constexpr int LOGNL = LOGN - log2i(C);
   constexpr int NL = 1 << LOGNL;
   constexpr int T = threads_for(LOGNL);
   extern __shared__ u64 a[];
   const size_t row = blockIdx.x / C;
-  const Row r = row_state<LOGN, C>(psi, psi_shoup, moduli, limbs, row);
+  Row r = row_state<LOGN, C>(psi, psi_shoup, moduli, limbs, row);
   u64* part[C];
   map_parts<C>(part, a);
+  const u64* src = in + (row << LOGN);
+  if constexpr (CI) {
+    r.f = fold[6 * (row % limbs)];
+    r.f_shoup = fold[6 * (row % limbs) + 1];
+  }
 
   if constexpr (C > 1) {
     cg::this_cluster().sync();  // every CTA has started
-    fwd_cross<LOGNL, C>(part, in + (row << LOGN), r);
+    if constexpr (CI) {
+      fwd_cross_ci<LOGNL, C>(part, src, r);
+    } else {
+      fwd_cross<LOGNL, C>(part, src, r);
+    }
+  } else if constexpr (CI) {
+    // the fold on load, a thread a pair of words j and N - j
+    for (int j = threadIdx.x; j <= NL / 2; j += T) {
+      const int j2 = (NL - j) & (NL - 1);
+      const u64 x1 = __ldg(src + j), x2 = __ldg(src + j2);
+      if (j == 0) {
+        a[0] = x1;
+        continue;
+      }
+      a[phys(j)] = fold_load(x1, x2, r);
+      if (j2 != j) a[phys(j2)] = fold_load(x2, x1, r);
+    }
   } else {
-    const u64* src = in + (row << LOGN);
     for (int j = threadIdx.x; j < NL; j += T) a[phys(j)] = __ldg(src + j);
   }
   cluster_sync<C>();
@@ -366,7 +516,7 @@ ntt64_fwd_kernel(const u64* __restrict__ in, u64* __restrict__ out, const u64* _
   for (int j = threadIdx.x; j < NL; j += T) dst[j] = csub(csub(a[phys(j)], two_q), r.q);
 }
 
-template <int LOGN, int C>
+template <int LOGN, int C, bool CI>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 ntt64_bwd_kernel(const u64* __restrict__ in, u64* __restrict__ out, const u64* __restrict__ ipsi,
                  const u64* __restrict__ ipsi_shoup, const u64* __restrict__ moduli,
@@ -377,20 +527,45 @@ ntt64_bwd_kernel(const u64* __restrict__ in, u64* __restrict__ out, const u64* _
   extern __shared__ u64 a[];
   const size_t row = blockIdx.x / C;
   Row r = row_state<LOGN, C>(ipsi, ipsi_shoup, moduli, limbs, row);
-  r.ni = ninv[row % limbs];
-  r.ni_shoup = ninv_shoup[row % limbs];
+  if constexpr (CI) {
+    // `ninv` is the fold row: F, its quotient at 2, 3; (2N)^-1 at 4, 5
+    const u64* f = ninv + 6 * (row % limbs);
+    r.f = f[2];
+    r.f_shoup = f[3];
+    r.ni = f[4];
+    r.ni_shoup = f[5];
+  } else {
+    r.ni = ninv[row % limbs];
+    r.ni_shoup = ninv_shoup[row % limbs];
+  }
   u64* part[C];
   map_parts<C>(part, a);
 
   const u64* src = in + (row << LOGN) + r.rank * NL;
   for (int j = threadIdx.x; j < NL; j += T) a[phys(j)] = __ldg(src + j);
   __syncthreads();
-  bwd_local<LOGNL, C>(a, r);
+  bwd_local<LOGNL, C, !CI>(a, r);
   u64* dst = out + (row << LOGN);
   if constexpr (C > 1) {
     cluster_sync<C>();
-    bwd_cross<LOGNL, C>(part, dst, r);
+    if constexpr (CI) {
+      bwd_cross_ci<LOGNL, C>(part, dst, r);
+    } else {
+      bwd_cross<LOGNL, C>(part, dst, r);
+    }
     cluster_sync<C>();   // the chunks are read by other CTAs until here
+  } else if constexpr (CI) {
+    // the fold on store, a thread a pair of words j and N - j
+    for (int j = threadIdx.x; j <= NL / 2; j += T) {
+      const int j2 = (NL - j) & (NL - 1);
+      const u64 y1 = a[phys(j)], y2 = a[phys(j2)];
+      if (j == 0) {
+        dst[0] = fold_store0(y1, r);
+        continue;
+      }
+      dst[j] = fold_store(y1, y2, r);
+      if (j2 != j) dst[j2] = fold_store(y2, y1, r);
+    }
   } else {
     for (int j = threadIdx.x; j < NL; j += T) dst[j] = csub(a[phys(j)], r.q);
   }
@@ -400,32 +575,32 @@ ntt64_bwd_kernel(const u64* __restrict__ in, u64* __restrict__ out, const u64* _
 // Launch.
 // ----------------------------------------------------------------------------
 
-using FwdKernel = void (*)(const u64*, u64*, const u64*, const u64*, const u64*, int);
+using FwdKernel = void (*)(const u64*, u64*, const u64*, const u64*, const u64*, const u64*, int);
 using BwdKernel = void (*)(const u64*, u64*, const u64*, const u64*, const u64*, const u64*,
                            const u64*, int);
 
 // This library's kernels: the ones of N = 2^MFHE_NTT_LOGN, one a cluster
 // size whose chunk fits a CTA (ops/ntt64_cuda.py builds one library for
-// each N).
+// each N), in each mode.
 template <int C>
 constexpr bool built() {
   return MFHE_NTT_LOGN >= (C == 1 ? kMinLogN : kMinClusterLogN) &&
          MFHE_NTT_LOGN - log2i(C) <= kMaxLocalLogN;
 }
 
-template <int C>
+template <int C, bool CI>
 FwdKernel fwd_kernel() {
   if constexpr (built<C>()) {
-    return ntt64_fwd_kernel<MFHE_NTT_LOGN, C>;
+    return ntt64_fwd_kernel<MFHE_NTT_LOGN, C, CI>;
   } else {
     return nullptr;
   }
 }
 
-template <int C>
+template <int C, bool CI>
 BwdKernel bwd_kernel() {
   if constexpr (built<C>()) {
-    return ntt64_bwd_kernel<MFHE_NTT_LOGN, C>;
+    return ntt64_bwd_kernel<MFHE_NTT_LOGN, C, CI>;
   } else {
     return nullptr;
   }
@@ -440,11 +615,11 @@ Kernel pick(Kernel (*const by_c[4])(), int logn, int c) {
 
 // Shared memory a kernel may use is raised above 48 KB once per kernel and
 // device, not at every launch.
-std::atomic<uint64_t> configured[2][4];
+std::atomic<uint64_t> configured[2][2][4];
 
-cudaError_t configure(const void* kernel, bool fwd, int c, size_t smem, int dev) {
+cudaError_t configure(const void* kernel, bool fwd, bool ci, int c, size_t smem, int dev) {
   const uint64_t bit = 1ull << (dev & 63);
-  std::atomic<uint64_t>& done = configured[fwd][log2i(c)];
+  std::atomic<uint64_t>& done = configured[fwd][ci][log2i(c)];
   if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -453,11 +628,11 @@ cudaError_t configure(const void* kernel, bool fwd, int c, size_t smem, int dev)
 }
 
 template <typename Kernel, typename... Args>
-cudaError_t launch_on(Kernel kernel, bool fwd, int rows, int logn, int c, int dev,
+cudaError_t launch_on(Kernel kernel, bool fwd, bool ci, int rows, int logn, int c, int dev,
                       void* stream, Args... args) {
   const int lognl = logn - log2i(c);
   const size_t smem = smem_for(lognl);
-  cudaError_t err = configure(reinterpret_cast<const void*>(kernel), fwd, c, smem, dev);
+  cudaError_t err = configure(reinterpret_cast<const void*>(kernel), fwd, ci, c, smem, dev);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(rows) * c, 1, 1);
@@ -478,7 +653,7 @@ cudaError_t launch_on(Kernel kernel, bool fwd, int rows, int logn, int c, int de
 // Launch on device `dev` (the calling thread's device is switched to it for
 // the launch and back) and `stream`, a stream of that device.
 template <typename Kernel, typename... Args>
-int launch(Kernel kernel, bool fwd, int rows, int logn, int c, int dev, void* stream,
+int launch(Kernel kernel, bool fwd, bool ci, int rows, int logn, int c, int dev, void* stream,
            Args... args) {
   if (kernel == nullptr || rows < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (rows == 0) return 0;
@@ -486,7 +661,7 @@ int launch(Kernel kernel, bool fwd, int rows, int logn, int c, int dev, void* st
   cudaError_t err = cudaGetDevice(&prev);
   if (err == cudaSuccess && prev != dev) err = cudaSetDevice(dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_on(kernel, fwd, rows, logn, c, dev, stream, args...);
+  err = launch_on(kernel, fwd, ci, rows, logn, c, dev, stream, args...);
   if (prev != dev) cudaSetDevice(prev);
   return static_cast<int>(err);
 }
@@ -504,21 +679,52 @@ int launch(Kernel kernel, bool fwd, int rows, int logn, int c, int dev, void* st
 extern "C" int mfhe_ntt64_fwd(const void* in, void* out, const void* psi, const void* psi_shoup,
                               const void* moduli, int rows, int limbs, int logn, int cluster,
                               int device, void* stream) {
-  FwdKernel (*const by_c[4])() = {fwd_kernel<1>, fwd_kernel<2>, fwd_kernel<4>, fwd_kernel<8>};
-  return launch(pick(by_c, logn, cluster), true, rows, logn, cluster, device, stream,
+  FwdKernel (*const by_c[4])() = {fwd_kernel<1, false>, fwd_kernel<2, false>,
+                                  fwd_kernel<4, false>, fwd_kernel<8, false>};
+  return launch(pick(by_c, logn, cluster), true, false, rows, logn, cluster, device, stream,
                 static_cast<const u64*>(in), static_cast<u64*>(out),
                 static_cast<const u64*>(psi), static_cast<const u64*>(psi_shoup),
-                static_cast<const u64*>(moduli), limbs);
+                static_cast<const u64*>(moduli), static_cast<const u64*>(nullptr), limbs);
 }
 
 extern "C" int mfhe_ntt64_bwd(const void* in, void* out, const void* ipsi,
                               const void* ipsi_shoup, const void* moduli, const void* ninv,
                               const void* ninv_shoup, int rows, int limbs, int logn, int cluster,
                               int device, void* stream) {
-  BwdKernel (*const by_c[4])() = {bwd_kernel<1>, bwd_kernel<2>, bwd_kernel<4>, bwd_kernel<8>};
-  return launch(pick(by_c, logn, cluster), false, rows, logn, cluster, device, stream,
+  BwdKernel (*const by_c[4])() = {bwd_kernel<1, false>, bwd_kernel<2, false>,
+                                  bwd_kernel<4, false>, bwd_kernel<8, false>};
+  return launch(pick(by_c, logn, cluster), false, false, rows, logn, cluster, device, stream,
                 static_cast<const u64*>(in), static_cast<u64*>(out),
                 static_cast<const u64*>(ipsi), static_cast<const u64*>(ipsi_shoup),
                 static_cast<const u64*>(moduli), static_cast<const u64*>(ninv),
                 static_cast<const u64*>(ninv_shoup), limbs);
+}
+
+// The CI mode: the same, the table being the CI ring's re-indexed one and
+// `fold` its [limbs, 6] row of (value, Shoup quotient) pairs: psi^N,
+// psi^-N, (2N)^-1 (ops/rings.py:_ci_kernel_tables).
+
+extern "C" int mfhe_ntt64_ci_fwd(const void* in, void* out, const void* psi,
+                                 const void* psi_shoup, const void* moduli, const void* fold,
+                                 int rows, int limbs, int logn, int cluster, int device,
+                                 void* stream) {
+  FwdKernel (*const by_c[4])() = {fwd_kernel<1, true>, fwd_kernel<2, true>, fwd_kernel<4, true>,
+                                  fwd_kernel<8, true>};
+  return launch(pick(by_c, logn, cluster), true, true, rows, logn, cluster, device, stream,
+                static_cast<const u64*>(in), static_cast<u64*>(out),
+                static_cast<const u64*>(psi), static_cast<const u64*>(psi_shoup),
+                static_cast<const u64*>(moduli), static_cast<const u64*>(fold), limbs);
+}
+
+extern "C" int mfhe_ntt64_ci_bwd(const void* in, void* out, const void* ipsi,
+                                 const void* ipsi_shoup, const void* moduli, const void* fold,
+                                 int rows, int limbs, int logn, int cluster, int device,
+                                 void* stream) {
+  BwdKernel (*const by_c[4])() = {bwd_kernel<1, true>, bwd_kernel<2, true>, bwd_kernel<4, true>,
+                                  bwd_kernel<8, true>};
+  return launch(pick(by_c, logn, cluster), false, true, rows, logn, cluster, device, stream,
+                static_cast<const u64*>(in), static_cast<u64*>(out),
+                static_cast<const u64*>(ipsi), static_cast<const u64*>(ipsi_shoup),
+                static_cast<const u64*>(moduli), static_cast<const u64*>(fold),
+                static_cast<const u64*>(nullptr), limbs);
 }

@@ -19,12 +19,13 @@ compute the same function, the negacyclic NTT mod q of the reference
 the u64 evaluator's) call ``ntt_fwd``/``ntt_bwd``.
 
 The conjugate-invariant ring's NTT (``ntt_ci_fwd``/``ntt_ci_bwd``) runs on
-the same kernel: its butterfly stages are the standard ones over a
-re-indexed table of 4N-th roots (``rings._ci_kernel_tables``), and its
-fold by psi (before the forward stages, after the inverse ones, with the
-(2N)^-1 scale) is an elementwise torch op around the launch
-(``rings.ci_fold``); on a CPU tensor both run as torch ops
-(``rings._ntt_ci``/``_intt_ci``).  The kernel is built by
+the same kernel in its CI mode (``mfhe_ntt64_ci_fwd``/``_bwd``), one launch
+a call: its butterfly stages are the standard ones over a re-indexed table
+of 4N-th roots (``rings._ci_kernel_tables``), and its fold by psi (before
+the forward stages, after the inverse ones, with the (2N)^-1 scale) runs
+in the kernel's load and store, from the ring's ``fold_row``; on a CPU
+tensor the plain version runs (``rings._ntt_ci``/``_intt_ci``, with
+``rings.ci_fold`` as torch ops).  The kernel is built by
 ``ops/ntt_cuda.py``'s helper into ``matrix_fhe_tpu_torch/_build/``, one
 library for each N (2^4 to 2^16), each at the first use of its N; nothing
 is built or loaded when this module is imported.
@@ -103,26 +104,25 @@ def ntt_ci_bwd_plain(x: torch.Tensor, ring) -> torch.Tensor:
 
 
 def ntt_ci_fwd(x: torch.Tensor, ring) -> torch.Tensor:
-    """The CI ring's forward NTT: the fold, then the stages on the kernel."""
+    """The CI ring's forward NTT: the fold on load, then the stages, in one
+    launch."""
     global ci_fwd_launches
-    from matrix_fhe_tpu_torch.ops.rings import ci_fold
     check_input(x, ring, "conjugate_invariant")
     if not x.is_cuda:
         return ntt_ci_fwd_plain(x, ring)
-    out = launch(ci_fold(x, ring, inverse=False), ring, fwd=True)
+    out = launch(x, ring, fwd=True, ci=True)
     ci_fwd_launches += 1
     return out
 
 
 def ntt_ci_bwd(x: torch.Tensor, ring) -> torch.Tensor:
-    """The CI ring's inverse NTT: the stages on the kernel (no scale), then
-    the fold with its (2N)^-1."""
+    """The CI ring's inverse NTT: the stages, then the fold with its
+    (2N)^-1 on store, in one launch."""
     global ci_bwd_launches
-    from matrix_fhe_tpu_torch.ops.rings import ci_fold
     check_input(x, ring, "conjugate_invariant")
     if not x.is_cuda:
         return ntt_ci_bwd_plain(x, ring)
-    out = ci_fold(launch(x, ring, fwd=False), ring, inverse=True)
+    out = launch(x, ring, fwd=False, ci=True)
     ci_bwd_launches += 1
     return out
 
@@ -173,12 +173,17 @@ def library(logn: int) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.mfhe_ntt64_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
     lib.mfhe_ntt64_bwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
-    lib.mfhe_ntt64_fwd.restype = lib.mfhe_ntt64_bwd.restype = i
+    lib.mfhe_ntt64_ci_fwd.argtypes = lib.mfhe_ntt64_ci_bwd.argtypes = [p] * 6 + [i] * 5 + [p]
+    for f in (lib.mfhe_ntt64_fwd, lib.mfhe_ntt64_bwd, lib.mfhe_ntt64_ci_fwd,
+              lib.mfhe_ntt64_ci_bwd):
+        f.restype = i
     return lib
 
 
-def launch(x: torch.Tensor, ring, fwd: bool, cluster: int | None = None) -> torch.Tensor:
-    """Launch the kernel (``mfhe_ntt64_fwd``/``_bwd``) on a contiguous CUDA
+def launch(x: torch.Tensor, ring, fwd: bool, cluster: int | None = None,
+           ci: bool = False) -> torch.Tensor:
+    """Launch the kernel (``mfhe_ntt64_fwd``/``_bwd``, or in the CI mode
+    ``mfhe_ntt64_ci_fwd``/``_bwd``, the fold inside) on a contiguous CUDA
     tensor that passed ``check_input``, each row split over ``cluster``
     CTAs (by default ``geometry``'s choice).  The caller counts the launch."""
     n, L = ring.n, ring.num_limbs
@@ -188,7 +193,10 @@ def launch(x: torch.Tensor, ring, fwd: bool, cluster: int | None = None) -> torc
     dev = x.get_device()
     if cluster is None:
         cluster = geometry(rows, n, ntt_cuda._sm_count(dev))
-    if fwd:
+    if ci:
+        tabs = ((ring.psi, ring.psi_shoup) if fwd else (ring.ipsi, ring.ipsi_shoup)) + \
+            (ring.moduli, ring.fold_row)
+    elif fwd:
         tabs = (ring.psi, ring.psi_shoup, ring.moduli)
     else:
         tabs = (ring.ipsi, ring.ipsi_shoup, ring.moduli, ring.ninv_plain, ring.ninv_shoup)
@@ -201,7 +209,10 @@ def launch(x: torch.Tensor, ring, fwd: bool, cluster: int | None = None) -> torc
         return out
     logn = n.bit_length() - 1
     lib = library(logn)
-    entry = lib.mfhe_ntt64_fwd if fwd else lib.mfhe_ntt64_bwd
+    if ci:
+        entry = lib.mfhe_ntt64_ci_fwd if fwd else lib.mfhe_ntt64_ci_bwd
+    else:
+        entry = lib.mfhe_ntt64_fwd if fwd else lib.mfhe_ntt64_bwd
     stream = torch._C._cuda_getCurrentRawStream(dev)
     err = entry(x.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in tabs),
                 rows, L, logn, cluster, dev, stream)

@@ -20,12 +20,16 @@ so every output equals the JAX package's bit for bit.
 
 This is the plain version of kernel B5 (``ops/ntt3n_cuda.py``,
 ``csrc/ntt3n.cu``); the tables are built on the host with Python big ints
-and live on the ring's device.
+and live on the ring's device.  ``build_tables`` also builds the tables
+the kernel reads (``kfwd``/``kbwd``/``kidx``): the kernel computes each
+branch's DFT_M as a mixed-radix FFT, not as the matmuls here, from the
+same omega (``kernel_layout``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
@@ -62,6 +66,21 @@ def _powers(base: int, count: int, q: int) -> list[int]:
 # the [L, ...] tables, sliced by limb
 LIMB_FIELDS = ("z_pow", "tw1", "tw2", "wr", "wc", "twid", "wri", "wci", "twidi",
                "untw1", "untw2", "inv_diff")
+# kernel B5's [L, ...] tables (the JAX package has none)
+KERNEL_FIELDS = ("kfwd", "kbwd")
+
+# Kernel B5's tables (csrc/ntt3n.cu).  Each branch's DFT_M, M = 2^p 3^b, is
+# a decimation-in-frequency FFT in place: p radix-2 stages, then b radix-3
+# stages; the stage whose blocks are Ms words long (Ms = M / 2^s for the
+# radix-2 stage s, 3^(b-k) for the radix-3 stage k) multiplies by powers of
+# omega_Ms = omega^(6 M / Ms).  A limb's row holds (value, Shoup quotient)
+# pairs of 64-bit words: KERNEL_HEADER pairs (q, the fold's z, the cube
+# root of unity, the inverse's (z - z^5)^-1), the M twist pairs of each
+# branch, then each stage's twiddles, the stage of block size Ms from pair
+# KERNEL_HEADER + 3M - Ms on: omega_Ms^j for j < Ms/2 (radix 2), or
+# omega_Ms^j, omega_Ms^2j for j < Ms/3 (radix 3).  3M + KERNEL_HEADER - 1
+# pairs in all.
+KERNEL_HEADER = 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,10 +104,92 @@ class NTT3NTables:
     inv_diff: torch.Tensor   # [L]       MForm((z - z^5)^-1)
     perm: torch.Tensor       # int64 [N] (branch, slot) -> E-sorted position
     iperm: torch.Tensor      # int64 [N] E-sorted position -> (branch, slot)
+    # kernel B5 (``kernel_layout``): [L, 2 W] words, W the pairs of a row;
+    # built by ``kernel_tables`` (``build_tables`` and ``carry`` call it)
+    kfwd: torch.Tensor  # forward: z, omega_3, twists omega^+-j, omega_Ms^j
+    kbwd: torch.Tensor  # inverse: z, omega_3^-1, (z - z^5)^-1,
+                        #   untwists M^-1 omega^-+j, omega_Ms^-j
+    kidx: torch.Tensor  # int32 [N] (branch, FFT position) -> E-sorted position
 
     def limbs(self, s: slice) -> "NTT3NTables":
         """The tables of the limbs in ``s`` (views, contiguous for a step-1 slice)."""
-        return dataclasses.replace(self, **{f: getattr(self, f)[s] for f in LIMB_FIELDS})
+        return dataclasses.replace(self, **{f: getattr(self, f)[s]
+                                            for f in LIMB_FIELDS + KERNEL_FIELDS})
+
+
+@functools.lru_cache(maxsize=None)
+def radix_counts(m: int) -> tuple[int, int]:
+    """(p, b) with M = 2^p 3^b; ValueError for any other M."""
+    p = b = 0
+    while m % 2 == 0:
+        m, p = m // 2, p + 1
+    while m % 3 == 0:
+        m, b = m // 3, b + 1
+    if m != 1:
+        raise ValueError("M is not of the form 2^p 3^b")
+    return p, b
+
+
+def kernel_layout(n: int) -> dict:
+    """The kernel's FFT of each branch at degree N: M, (p, b), the block
+    size of each stage in order (the radix-2 stages, then the radix-3
+    ones), and the pairs of a limb's table row."""
+    m = n // 2
+    p, b = radix_counts(m)
+    blocks = [m >> s for s in range(p)] + [3 ** (b - k) for k in range(b)]
+    return {"m": m, "p": p, "b": b, "blocks": blocks, "pairs": 3 * m + KERNEL_HEADER - 1}
+
+
+def stage_pair(m: int, ms: int) -> int:
+    """First pair of the twiddles of the stage whose blocks are ``ms`` words."""
+    return KERNEL_HEADER + 3 * m - ms
+
+
+def fft_order(m: int) -> list[int]:
+    """The DFT index X[k] that the in-place FFT leaves at each position:
+    position sum_i d_i M / (r_1 .. r_i) holds k = d_1 + r_1 d_2 + r_1 r_2 d_3
+    + .. (a mixed-radix digit reversal, radices r_i = 2, .., 2, 3, .., 3)."""
+    p, b = radix_counts(m)
+    k, rem, block, weight = [0] * m, list(range(m)), m, 1
+    for r in [2] * p + [3] * b:
+        block //= r
+        for i in range(m):
+            d, rem[i] = divmod(rem[i], block)
+            k[i] += d * weight
+        weight *= r
+    return k
+
+
+def _kernel_rows(m: int, q: int, omega: int, z: int) -> tuple[list[int], list[int]]:
+    """One limb's forward and inverse rows of kernel B5 (``kernel_layout``)."""
+    p, b = radix_counts(m)
+    w_m = pow(omega, 6, q)
+    pw = _powers(w_m, m, q)                       # omega_M^e
+    pwi = [pw[-e % m] for e in range(m)]          # omega_M^-e
+    oinv = pow(omega, q - 2, q)
+    minv = pow(m, q - 2, q)
+    twist, itwist = _powers(omega, m, q), _powers(oinv, m, q)
+    w3 = pw[m // 3] if b else 0
+    fwd = [q, z, w3, 0] + twist + itwist
+    bwd = [q, z, pwi[m // 3] if b else 0, pow((z - pow(z, 5, q)) % q, q - 2, q)]
+    bwd += [v * minv % q for v in itwist] + [v * minv % q for v in twist]
+    for i, ms in enumerate(kernel_layout(2 * m)["blocks"]):
+        step = m // ms
+        if i < p:
+            fwd += [pw[step * j] for j in range(ms // 2)]
+            bwd += [pwi[step * j] for j in range(ms // 2)]
+        else:
+            for j in range(ms // 3):
+                fwd += [pw[step * j], pw[2 * step * j]]
+                bwd += [pwi[step * j], pwi[2 * step * j]]
+
+    def pairs(vals):
+        out = []
+        for v in vals:
+            out += [v, (v << 64) // q if v < q else 0]
+        return out
+
+    return pairs(fwd), pairs(bwd)
 
 
 def build_tables(n: int, moduli, omegas, device="cuda") -> NTT3NTables:
@@ -143,7 +244,47 @@ def build_tables(n: int, moduli, omegas, device="cuda") -> NTT3NTables:
         return torch.tensor(v, dtype=torch.int64, device=device)
 
     return NTT3NTables(n=n, rows=R, cols=C, perm=t(perm), iperm=t(iperm),
-                       **{f: t(v) for f, v in cols.items()})
+                       **{f: t(v) for f, v in cols.items()},
+                       **kernel_tables(n, moduli, omegas, perm, device))
+
+
+def kernel_tables(n: int, moduli, omegas, perm, device="cuda") -> dict:
+    """Kernel B5's tables ``kfwd``, ``kbwd`` and ``kidx`` on ``device``,
+    from the limbs' moduli and primitive 3N-th roots and the table ``perm``
+    ((branch, slot) -> E-sorted position)."""
+    device = resolve_device(device)
+    m = n // 2
+    kfwd, kbwd = [], []
+    for q, omega in zip(moduli, omegas):
+        q, omega = int(q), int(omega)
+        kf, kb = _kernel_rows(m, q, omega, pow(omega, m, q))
+        kfwd.append([mm.signed(v) for v in kf])
+        kbwd.append([mm.signed(v) for v in kb])
+    perm = [int(v) for v in perm]
+    order = fft_order(m)
+    kidx = [perm[k] for k in order] + [perm[m + k] for k in order]
+    return {"kfwd": torch.tensor(kfwd, dtype=torch.int64, device=device),
+            "kbwd": torch.tensor(kbwd, dtype=torch.int64, device=device),
+            "kidx": torch.tensor(kidx, dtype=torch.int32, device=device)}
+
+
+def modulus_and_root(tw1) -> tuple[int, int]:
+    """(q, omega) of a limb from its twist row ``tw1`` (u64 words
+    MForm(omega^i) = omega^i 2^64 mod q, i < M, M >= 4): q divides 2^64 -
+    MForm(1) and each MForm(omega^i) MForm(omega^j) - MForm(omega^(i+j))
+    MForm(1); ValueError if their gcd is not a modulus that omega is a
+    primitive 3N-th root of (N = 2M)."""
+    w = [int(v) for v in tw1]
+    m = len(w)
+    q = (1 << 64) - w[0]
+    for i in range(1, min(m, 8)):
+        for j in range(i, min(m, 8) - i):
+            q = math.gcd(q, w[i] * w[j] - w[i + j] * w[0])
+    omega = w[1] * pow(1 << 64, -1, q) % q if q > max(w) else 0
+    if m < 4 or not omega or pow(omega, 6 * m, q) != 1 or pow(omega, 3 * m, q) == 1 \
+            or [_mont(v, q) for v in _powers(omega, m, q)] != w:
+        raise ValueError("the twist row is not MForm(omega^i) of a modulus q < 2^64")
+    return q, omega
 
 
 # ---------------------------------------------------------------------------

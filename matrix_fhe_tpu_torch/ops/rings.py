@@ -115,11 +115,17 @@ def _ci_kernel_tables(t: dict, n: int, q: int) -> dict:
     2^s + i of the table (the standard ring's psi powers); the CI ring's
     stage s reads entry 2^(s+1) + i of the 4N-th-root table (``_ntt_ci``),
     so B4 runs it on the table T[j] = psi[j + 2^floor(log2 j)], j >= 1.  Its
-    inverse ends with no scale: the CI fold applies (2N)^-1 after it."""
+    stages end with no scale (``ninv_plain`` = 1): B4's CI mode folds on
+    load and on store with the row ``fold_row``: F = psi^N (``roots_fwd[1]``
+    out of Montgomery form), psi^-N (``roots_bwd[1]``) and (2N)^-1, each
+    beside its Shoup quotient."""
     idx = [0] + [j + (1 << (j.bit_length() - 1)) for j in range(1, n)]
     out = {k: [t[k][i] if j else 0 for j, i in enumerate(idx)]
            for k in ("psi", "psi_shoup", "ipsi", "ipsi_shoup")}
-    return dict(t, **out, ninv_plain=1, ninv_shoup=(1 << 64) // q)
+    fold = []
+    for v in (t["psi"][1], t["ipsi"][1], pow(2 * n, q - 2, q)):
+        fold += [v, (v << 64) // q]
+    return dict(t, **out, ninv_plain=1, ninv_shoup=(1 << 64) // q, fold_row=fold)
 
 
 def _gen_3n_tables(nth_root: int, q: int) -> dict:
@@ -184,7 +190,7 @@ class Dense3N:
 
 # tensor fields with one row a limb (sliced by ``Ring.limbs``)
 _LIMB_FIELDS = ("moduli", "qinv", "bhi", "blo", "ninv", "roots_fwd", "roots_bwd", "psi",
-                "psi_shoup", "ipsi", "ipsi_shoup", "ninv_plain", "ninv_shoup")
+                "psi_shoup", "ipsi", "ipsi_shoup", "ninv_plain", "ninv_shoup", "fold_row")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -221,6 +227,8 @@ class Ring:
     ipsi_shoup: torch.Tensor | None = None
     ninv_plain: torch.Tensor | None = None
     ninv_shoup: torch.Tensor | None = None
+    # the CI ring: B4's fold row [L, 6] (``_ci_kernel_tables``)
+    fold_row: torch.Tensor | None = None
     # 3N ring: the factorized tables (R >= 2), else the dense transform (N <= 384)
     ntt3n: n3.NTT3NTables | None = None
     dense3n: Dense3N | None = None
@@ -389,9 +397,11 @@ def new_ring(n: int, moduli: list[int], ring_type: str = STANDARD,
         extra = dict(ntt3n=ntt3n, dense3n=dense)
     else:
         tabs = [_gen_subring_tables(nth_root, q) for q in moduli]
+        extra = {}
         if ring_type == CONJUGATE_INVARIANT:
             tabs = [_ci_kernel_tables(t, n, q) for t, q in zip(tabs, moduli)]
-        extra = dict(
+            extra["fold_row"] = rows("fold_row")
+        extra.update(
             roots_fwd=_residues([t["roots_fwd"] for t in tabs], device),
             roots_bwd=_residues([t["roots_bwd"] for t in tabs], device),
             psi=_residues([t["psi"] for t in tabs], device), psi_shoup=rows("psi_shoup"),

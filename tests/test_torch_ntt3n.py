@@ -9,6 +9,8 @@ the JAX package on the same moduli and numpy-seeded inputs.
   ways, the plain version of kernel B5, at N = 6 (dense only), 12, 24, 48,
   96 (factorized and dense) and 1152, on JAX's jitted transform;
 * ``at_level`` slicing and ``automorphism_ntt_index_3n``;
+* the JAX tables carried over (``carry.carry``) with kernel B5's tables
+  rebuilt from them, equal to the port ring's;
 * tests/test_ntt3n_fact.py's cases on the port (factorized == dense, the
   round trip and the ring product at N = 1152; its slow marks mirrored) and
   tests/test_ntt.py's 3N cases against tests/oracle.py's Horner evaluation.
@@ -26,6 +28,7 @@ from matrix_fhe_tpu.ops import automorphism as jam
 from matrix_fhe_tpu.ops import modmath as jm
 from matrix_fhe_tpu.ops import rings as jr
 from matrix_fhe_tpu.utils import primes as jp
+from matrix_fhe_tpu_torch import carry
 from matrix_fhe_tpu_torch.ops import automorphism as tam
 from matrix_fhe_tpu_torch.ops import ntt_3n
 from matrix_fhe_tpu_torch.ops import rings as tr
@@ -130,6 +133,24 @@ def test_at_level_slices_tables():
         sub6 = ring6.limbs(lo, hi)
         assert sub6.ntt3n is None and sub6.dense3n.moduli == tuple(moduli6[lo:hi])
         assert torch.equal(sub6.ntt(x6[lo:hi]), ring6.ntt(x6)[lo:hi])
+
+
+@pytest.mark.parametrize("n", [12, 48, 1152])
+def test_carried_tables_hold_kernel_tables(n):
+    """The JAX ring's tables carried over: kernel B5's tables, rebuilt from
+    each limb's modulus and root read back from its twist row, equal the
+    port ring's; a row that is no such twist row is refused."""
+    moduli = tp.find_3n_rns_primes(n, 45, 1) + tp.find_3n_rns_primes(n, 59, 1)
+    jring, tring = _rings(n, moduli)
+    carried = carry.carry(jring.ntt3n, "cpu")
+    for name in ntt_3n.LIMB_FIELDS + ntt_3n.KERNEL_FIELDS + ("kidx",):
+        assert torch.equal(getattr(carried, name), getattr(tring.ntt3n, name)), name
+    row = np.asarray(jring.ntt3n.tw1)[1]
+    assert ntt_3n.modulus_and_root(row)[0] == moduli[1]
+    bad = row.copy()
+    bad[-1] ^= np.uint64(1)
+    with pytest.raises(ValueError, match="twist row"):
+        ntt_3n.modulus_and_root(bad)
 
 
 @pytest.mark.parametrize("n", [12, 24, 48, 96, pytest.param(192, marks=pytest.mark.slow),

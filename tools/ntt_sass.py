@@ -25,12 +25,15 @@ shared-memory traffic instead: an innermost loop with as many 64-bit
 shared loads as stores, 2^R each, holds R 2^R / 2 butterflies (R <= 3);
 the hot pass is the body with the most butterflies (R = 3: 12), the longest
 of those (``hot_pass64``).
-``--b5``: kernel B5 (``csrc/ntt3n.cu``, ``ntt3n_fwd_kernel``,
-``ntt3n_bwd_kernel``, one library for all N).  Its hot loop is the
-mod-matmul's unrolled chunk of 8 Montgomery MACs with the chunk's
-reduction: the innermost loop with the most shared loads, one a MAC
-(``hot_mac_loop``); its instructions a MAC are the kernel's own cost, held
-beside the 8 multiply-adds a MAC needs (``chip_smoke.py``'s bound).
+``--b5``: kernel B5 (``csrc/ntt3n.cu``, ``ntt3n_fwd_kernel<C>``,
+``ntt3n_bwd_kernel<C>`` for each cluster size C, one library for all N).
+Its passes are loops over groups held in registers (``b5_passes``): a loop
+with 2^R 64-bit shared loads and as many stores is a radix-2^R pass of
+R 2^R / 2 butterflies (R <= 3), one with 3 of each a radix-3 pass of one
+radix-3 butterfly (3 products); the hot radix-2^k pass is the one with the
+most butterflies (R = 3: 12).  Its instructions a butterfly, and a radix-3
+butterfly, are the kernel's own cost, held beside the 15 multiply-adds of
+a Shoup product (``chip_smoke.py``'s bound).
 ``--nvcc-flag FLAG`` (repeatable): build the libraries again with FLAG
 added to the port's flags, into a temporary directory, and print ptxas's
 registers and spills for each kernel beside the as-built ones (a register
@@ -58,7 +61,8 @@ from matrix_fhe_tpu_torch.ops import ntt_cuda  # noqa: E402
 
 _FUNC = re.compile(r"^\s*Function : (\S+)")
 _INSTR = re.compile(r"^\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
-_KERNEL = re.compile(r"(ntt(?:64)?_(?:fwd|bwd)_kernel)ILi(\d+)ELi(\d+)E")
+_KERNEL = re.compile(r"(ntt(?:64)?_(?:fwd|bwd)_kernel)ILi(\d+)ELi(\d+)E(?:Lb([01])E)?")
+_KERNEL3N = re.compile(r"(ntt3n_(?:fwd|bwd)_kernel)(?:ILi(\d+)E)?")
 
 
 def _cuobjdump() -> str:
@@ -69,13 +73,15 @@ def _cuobjdump() -> str:
 
 
 def label(mangled: str) -> str:
-    """``ntt_fwd_kernel<14, 1>`` (or ``ntt3n_fwd_kernel``) for a mangled
-    kernel name."""
+    """``ntt_fwd_kernel<14, 1>``, ``ntt64_fwd_kernel<14, 8, ci>`` (B4's CI
+    mode) or ``ntt3n_fwd_kernel<8>`` for a mangled kernel name."""
     m = _KERNEL.search(mangled)
     if m:
-        return f"{m.group(1)}<{m.group(2)}, {m.group(3)}>"
-    m = re.search(r"ntt3n_(?:fwd|bwd)_kernel", mangled)
-    return m.group(0) if m else mangled
+        return f"{m.group(1)}<{m.group(2)}, {m.group(3)}{', ci' if m.group(4) == '1' else ''}>"
+    m = _KERNEL3N.search(mangled)
+    if m:
+        return f"{m.group(1)}<{m.group(2)}>" if m.group(2) else m.group(1)
+    return mangled
 
 
 def parse(sass: str) -> dict[str, list[tuple[int, str]]]:
@@ -158,17 +164,24 @@ def hot_pass64(instrs: list[tuple[int, str]]) -> tuple[int, int]:
     return best[1], best[0]
 
 
-def hot_mac_loop(instrs: list[tuple[int, str]]) -> tuple[int, int]:
-    """(instructions, MACs) of B5's hot loop (see the module's docstring);
-    (0, 0) if the kernel has none."""
-    best = (0, 0)
+def b5_passes(instrs: list[tuple[int, str]]) -> dict[str, tuple[int, int]]:
+    """{"radix-2^k": (instructions, butterflies), "radix-3": (instructions,
+    radix-3 butterflies)} of B5's hot radix-2^k pass and its radix-3 pass
+    (see the module's docstring); a kind the kernel lacks is (0, 0)."""
+    out = {"radix-2^k": (0, 0), "radix-3": (0, 0)}
     for lo, hi in loops(instrs):
         body = [opcode(t) for a, t in instrs if lo <= a <= hi]
-        # x's loads: from shared memory (LDS), or generic (LD) where the
-        # compiler did not see the address space
-        loads = sum(op.startswith("LDS") or op.split(".")[0] == "LD" for op in body)
-        best = max(best, (loads, -len(body)))
-    return -best[1], best[0]
+        words = sum(op.startswith("STS") for op in body)
+        if words != sum(op.startswith("LDS") for op in body):
+            continue
+        if words == 3:
+            out["radix-3"] = max(out["radix-3"], (len(body), 1), key=lambda v: v[0])
+        elif words >= 2 and words & (words - 1) == 0:
+            r = words.bit_length() - 1
+            cur = out["radix-2^k"]
+            if (r * words // 2, -len(body)) > (cur[1], -cur[0]):
+                out["radix-2^k"] = (len(body), r * words // 2)
+    return out
 
 
 def ptxas_report(log: str) -> dict[str, dict[str, int]]:
@@ -235,8 +248,9 @@ def main() -> int:
     for name, instrs in sorted(parse(sass).items()):
         r = regs.get(name, {})
         if args.b5:
-            n, p = hot_mac_loop(instrs)
-            hot = f"hot loop {n} instructions / {p} MACs = {n / p:.2f} a MAC" if p else "no loop"
+            hot = "; ".join(f"{kind} pass {n} instructions / {p} butterflies = {n / p:.2f} a "
+                            f"butterfly" if p else f"no {kind} pass"
+                            for kind, (n, p) in b5_passes(instrs).items())
             print(f"{name}: {len(instrs)} instructions, {r.get('registers', '?')} registers, "
                   f"{r.get('spill_bytes', '?')} spill bytes; {hot}")
             if args.nvcc_flag:
