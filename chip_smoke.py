@@ -136,7 +136,11 @@ plain NTT on the CPU, and its launches there are printed):
     scale 2^45, relinearization and inverse galois keys): sign, step, max,
     min, goldschmidt_division and evaluate_positive_domain on 8192 slots
     drawn as that test draws them, within its bounds, each equal to the
-    same circuit on the CPU with the card's keys.
+    same circuit on the CPU with the card's keys.  Then B4 by launch shape
+    over the cold passes of phases 8, 9 and 11-13 (every call on the card
+    recorded with its shape and counted, merged over moduli): launches,
+    device time queued, bound and loss, launches x (device - bound), with
+    the sum (b4_loss).
 
 Then the fork's own rings and kernel B5, the 3N ring's NTT (csrc/ntt3n.cu,
 a mixed-radix FFT), and the conjugate-invariant (CI) ring over B4's CI mode:
@@ -180,7 +184,11 @@ a mixed-radix FFT), and the conjugate-invariant (CI) ring over B4's CI mode:
     the session gave it, one kernel a call there (three calls captured
     into a CUDA graph hold three B4 kernel nodes and nothing else) and no
     torch operator but the output's allocation (a dispatch mode),
-    with its times there (as B5's) beside the bound.
+    with its times there (as B5's) beside the bound, and its loss table
+    by shape as phase 13's; then the loss summed over phases 8-13 and 16,
+    and every shape of those tables with its launches and moduli written
+    to matrix_fhe_tpu_torch/_build/b4_shapes.json (for
+    tools/ntt64_ab.py --shapes).
 
 Prints a JSON line of per-kernel results, one entry per kernel entry point:
 launches on its path (phase 4 for ntt_fwd/ntt_bwd, 6 for the chain, 7 for
@@ -867,15 +875,19 @@ def _b4_counted(dev, fn):
     return _counted_in(ntt64_cuda, dev, fn)
 
 
-def _shapes_in(wrapper, fn, seen: dict, names=("ntt_fwd", "ntt_bwd")):
+def _shapes_in(wrapper, fn, seen: dict, names=("ntt_fwd", "ntt_bwd"), counts=None):
     """fn() with every call of ``wrapper``'s entry points ``names`` (forward,
     inverse; each takes (x, ring)) recorded into ``seen``:
-    {(direction, shape, moduli): ring}."""
+    {(direction, shape, moduli): ring}, and the calls on a CUDA tensor (the
+    kernel's launches) counted into ``counts`` by the same key."""
     fwd, bwd = (getattr(wrapper, name) for name in names)
 
     def recording(direction, kernel):
         def call(x, ring):
-            seen.setdefault((direction, tuple(x.shape), ring.moduli_tuple), ring)
+            key = (direction, tuple(x.shape), ring.moduli_tuple)
+            seen.setdefault(key, ring)
+            if counts is not None and x.is_cuda:
+                counts[key] = counts.get(key, 0) + 1
             return kernel(x, ring)
         return call
 
@@ -888,10 +900,11 @@ def _shapes_in(wrapper, fn, seen: dict, names=("ntt_fwd", "ntt_bwd")):
         setattr(wrapper, names[1], bwd)
 
 
-def b4_shapes(fn, seen: dict):
-    """fn() with every B4 call recorded into ``seen``."""
+def b4_shapes(fn, seen: dict, counts=None):
+    """fn() with every B4 call recorded into ``seen`` (and its launches
+    counted into ``counts``)."""
     from matrix_fhe_tpu_torch.ops import ntt64_cuda
-    return _shapes_in(ntt64_cuda, fn, seen)
+    return _shapes_in(ntt64_cuda, fn, seen, counts=counts)
 
 
 def _digest64(tensors) -> str:
@@ -920,15 +933,52 @@ def _words(rng, lead, moduli, n) -> torch.Tensor:
 
 def _b4_bound(rows: int, limbs: int, n: int, fwd: bool, int32_ops_per_s, ci: bool = False):
     """(bytes time, operations time) in ms of one B4 transform of ``rows``
-    rows over ``limbs`` limbs: 8 B a word in and out, 16 B a table word (the
-    twiddle and its Shoup quotient); a Shoup product a butterfly, and one an
-    element for the inverse's N^-1, or on the CI ring for the fold (and the
-    inverse's (2N)^-1), in multiply-adds on the FMA pipe."""
-    nbytes = 8 * n * 2 * rows + 16 * n * limbs
+    rows over ``limbs`` limbs: 8 B a word in and out, and 8 B a distinct
+    constant of a limb other than 1 (its N - 1 twiddles, the inverse's N^-1;
+    on the CI ring the fold's F forward and F and (2N)^-1 inverse, whose
+    stages end with no scale), as B5's bound counts them (no Shoup quotient:
+    that is the kernel's own table layout); a Shoup product a butterfly, and
+    one an element for the inverse's N^-1, or on the CI ring for the fold
+    (and the inverse's (2N)^-1), in multiply-adds on the FMA pipe."""
+    constants = n - 1 + ((1 if fwd else 2) if ci else (0 if fwd else 1))
+    nbytes = 8 * n * 2 * rows + 8 * constants * limbs
     products = (n // 2) * (n.bit_length() - 1) + (n * (1 if fwd else 2) if ci else
                                                   (0 if fwd else n))
     return (nbytes / HBM_BYTES_PER_S * 1e3,
             rows * products * MULS_SHOUP / (int32_ops_per_s / 2) * 1e3)
+
+
+def b4_loss(calls: dict, counts: dict, dev, rng, int32_ops_per_s, smi: str, what: str,
+            ci: bool = False) -> list:
+    """B4 by launch shape: the calls ``counts`` recorded ({(direction,
+    shape, moduli): launches}, rings in ``calls``), merged over moduli; for
+    each (direction, shape) the launches, the device time queued a launch
+    (``_device_ms``), the bound (``_b4_bound``) and the loss, launches x
+    (device - bound).  Prints the table and its sum; returns its rows as
+    dicts (the moduli of the first ring seen at the shape)."""
+    from matrix_fhe_tpu_torch.ops import ntt64_cuda
+    names = CI_ENTRIES if ci else ("ntt_fwd", "ntt_bwd")
+    merged: dict = {}
+    for (d, shape, moduli), n_calls in counts.items():
+        rec = merged.setdefault((d, shape), {"ring": calls[d, shape, moduli], "launches": 0})
+        rec["launches"] += n_calls
+    rows = []
+    for (d, shape), rec in sorted(merged.items(), key=lambda kv: (kv[0][1], kv[0][0])):
+        ring = rec["ring"]
+        kern = getattr(ntt64_cuda, names[0] if d == "fwd" else names[1])
+        x = _words(rng, shape[:-2], ring.moduli_tuple, shape[-1]).to(dev)
+        device = _device_ms(lambda: kern(x, ring))
+        bound = max(_b4_bound(int(np.prod(shape[:-1])), shape[-2], shape[-1], d == "fwd",
+                              int32_ops_per_s, ci=ci))
+        rows.append({"dir": d, "shape": list(shape), "ci": ci, "moduli": list(ring.moduli_tuple),
+                     "launches": rec["launches"], "device_ms": device, "bound_ms": bound,
+                     "loss_ms": rec["launches"] * (device - bound)})
+        print(f"phase b4 loss: {what} {d} {str(list(shape)):18s} launches {rec['launches']:5d}, "
+              f"device queued {device * 1e3:7.2f} us, bound {bound * 1e3:6.3f} us, loss "
+              f"{rows[-1]['loss_ms']:8.4f} ms | {smi}")
+    print(f"phase b4 loss: {what}, {len(rows)} shapes, {sum(r['launches'] for r in rows)} "
+          f"launches: loss {sum(r['loss_ms'] for r in rows):.4f} ms summed | {smi}")
+    return rows
 
 
 def check_b4_sizes(dev, rng, sms) -> list:
@@ -948,8 +998,7 @@ def check_b4_sizes(dev, rng, sms) -> list:
             x = x_cpu.to(dev)
             rows = int(np.prod(lead)) * limbs
             picked = ntt64_cuda.geometry(rows, n, sms)
-            cs = [c for c in (1, 2, 4, 8) if (c == 1 or n >= ntt64_cuda.MIN_CLUSTER_N)
-                  and n // c <= ntt64_cuda.MAX_LOCAL_N]
+            cs = ntt64_cuda.clusters(n)
             assert picked in cs
             err = 0
             for fwd in (True, False):
@@ -1152,9 +1201,12 @@ def wide_circuits(dev, times: dict, keys=None) -> dict:
     return {"out": out, "keys": keys, "errs": errs, "ok": ok, "counts": counts}
 
 
-def wide_phases(dev, smi: str, rng, sms: int, int32_ops_per_s: float) -> dict:
+def wide_phases(dev, smi: str, rng, sms: int, int32_ops_per_s: float, b4_calls: dict,
+                b4_launches: dict) -> dict:
     """Phases 10-13 (see the module's docstring); returns what the kernels
-    line reports of B4."""
+    line reports of B4, and B4's loss by shape over phases 8-13 (the calls
+    and launches of phases 8 and 9 come in ``b4_calls`` / ``b4_launches``,
+    ``b4_shapes``'s records, and those of 11-13 are added)."""
     from matrix_fhe_tpu_torch.circuits.ckks import bootstrapping as btp
     from matrix_fhe_tpu_torch.fast import fboot
     from matrix_fhe_tpu_torch.ops import ntt64_cuda
@@ -1172,12 +1224,14 @@ def wide_phases(dev, smi: str, rng, sms: int, int32_ops_per_s: float) -> dict:
     b4_regs = ntt_sass.ptxas_report(ntt_sass.build_logs(B4_SIZES, ntt64_cuda.SOURCE))
     b4_instr = {}
     for d in ("fwd", "bwd"):
-        for c in (1, 8):
+        for c in (1, 8, 16):
             name = f"ntt64_{d}_kernel<{LOGN}, {c}>"
             instrs, flies = ntt_sass.hot_pass64(b4_funcs[name])
-            b4_instr[d, c] = instrs / flies
-            print(f"phase b4: {name} hot pass {instrs} instructions / {flies} butterflies = "
-                  f"{instrs / flies:.2f} a butterfly; {b4_regs[name]['registers']} registers, "
+            if flies:   # C = 1 loops over groups; the clusters' passes are unrolled
+                b4_instr[d] = instrs / flies
+            hot = (f"hot pass {instrs} instructions / {flies} butterflies = "
+                   f"{instrs / flies:.2f} a butterfly" if flies else "passes unrolled")
+            print(f"phase b4: {name} {hot}; {b4_regs[name]['registers']} registers, "
                   f"{b4_regs[name]['spill_bytes']} spill bytes")
     spills = {k: v["spill_bytes"] for k, v in b4_regs.items() if v.get("spill_bytes")}
     print(f"phase b4: {len(b4_regs)} B4 kernels built, registers "
@@ -1189,7 +1243,7 @@ def wide_phases(dev, smi: str, rng, sms: int, int32_ops_per_s: float) -> dict:
     steps, step_shapes = {}, {}
     for name in WIDE_SHAPES:
         seen: dict = {}
-        steps[name] = b4_shapes(lambda: wide_step(name, dev), seen)
+        steps[name] = b4_shapes(lambda: wide_step(name, dev), seen, b4_launches)
         b4_seen.update(seen)
         if name == "pn14qp438":
             step_shapes = seen
@@ -1221,8 +1275,9 @@ def wide_phases(dev, smi: str, rng, sms: int, int32_ops_per_s: float) -> dict:
           f"slots, residual level {wp.residual_level}, {len(wp.galois_elements())} galois "
           f"keys, sparse secret weight {wp.lit.ephemeral_secret_weight}")
     wtimes: dict = {}
-    (wsk, wevk), b4_wkeys = _b4_counted(dev, lambda: boot_keys(wp, wtimes))
-    wboot = b4_shapes(lambda: wide_boot_session(wp, wsk, wevk, wtimes), b4_seen)
+    (wsk, wevk), b4_wkeys = _b4_counted(dev, lambda: b4_shapes(
+        lambda: boot_keys(wp, wtimes), b4_seen, b4_launches))
+    wboot = b4_shapes(lambda: wide_boot_session(wp, wsk, wevk, wtimes), b4_seen, b4_launches)
     wpeak = torch.cuda.max_memory_allocated()
     wwarm_times: dict = {}
     wkeys2 = boot_keys(wp, wwarm_times)
@@ -1276,7 +1331,7 @@ def wide_phases(dev, smi: str, rng, sms: int, int32_ops_per_s: float) -> dict:
 
     # -- 13. the comparison and inverse circuits on the wide evaluator ----------------------
     ctimes: dict = {}
-    circ = b4_shapes(lambda: wide_circuits(dev, ctimes), b4_seen)
+    circ = b4_shapes(lambda: wide_circuits(dev, ctimes), b4_seen, b4_launches)
     cpu_ctimes: dict = {}
     cpu_circ = wide_circuits(cpu, cpu_ctimes, keys=_move(circ["keys"], cpu))
     for name, err in circ["errs"].items():
@@ -1318,7 +1373,7 @@ def wide_phases(dev, smi: str, rng, sms: int, int32_ops_per_s: float) -> dict:
               f"{b[0] * 1e3:.3f} us, operations {b[1] * 1e3:.3f} us | {smi}")
     for d in ("fwd", "bwd"):
         b4_stats[d].update(_bound_entry(b4_bounds[d]),
-                           sass_instructions_a_butterfly=b4_instr[d, 8])
+                           sass_instructions_a_butterfly=b4_instr[d])
         print(f"phase b4: the PN14QP438 step's {len(b4_bounds[d])} {d} shapes summed: kernel "
               f"{b4_stats[d]['ms']:.4f} ms, device queued {b4_extra[d]['device']:.4f} ms, L2 "
               f"flushed {b4_extra[d]['flushed']:.4f} ms, host {b4_extra[d]['host']:.4f} ms, plain "
@@ -1337,8 +1392,11 @@ def wide_phases(dev, smi: str, rng, sms: int, int32_ops_per_s: float) -> dict:
         "wide bootstrap setup (phase 12: keygen, make_wide_bootstrapper)":
             total(b4_wkeys, wboot["counts"]["make_wide_bootstrapper"]),
         "circuits (phase 13)": total(*circ["counts"].values())}
+    # -- 13, continued: B4's loss by shape over phases 8-13 ---------------------------------
+    loss = b4_loss({**b4_calls, **b4_seen}, b4_launches, dev, rng, int32_ops_per_s, smi,
+                   "phases 8-13")
     return {"size_rows": size_rows, "shape_rows": shape_rows, "stats": b4_stats,
-            "by_path": by_path}
+            "by_path": by_path, "loss": loss}
 
 # -- phases 14-16: the fork's rings: B5, Matrix-CKKS at N = 12288, CKKS on the CI ring --
 
@@ -1741,7 +1799,8 @@ def matrix_phases(dev, smi: str, rng, int32_ops_per_s: float) -> dict:
     from tools.port_precision_floor import CI_LITERAL
     citimes: dict = {}
     ci_seen: dict = {}
-    ci = _shapes_in(ntt64_cuda, lambda: ci_session(dev, citimes), ci_seen, CI_ENTRIES)
+    ci_launches: dict = {}
+    ci = _shapes_in(ntt64_cuda, lambda: ci_session(dev, citimes), ci_seen, CI_ENTRIES, ci_launches)
     cp = ci["params"]
     print(f"phase ci: CKKS on the conjugate-invariant ring, logN {cp.log_n}, {cp.max_slots} real "
           f"slots, Q {[q.bit_length() for q in cp.q]} bits, P {[p.bit_length() for p in cp.p]} "
@@ -1806,7 +1865,9 @@ def matrix_phases(dev, smi: str, rng, int32_ops_per_s: float) -> dict:
 
     b5_by_path = {"Matrix-CKKS keygen (phase 15)": ms["counts_keys"],
                   **{f"Matrix-CKKS {k} (phase 15)": v for k, v in ms["counts"].items()}}
-    return {"b5_stats": stats, "b5_launches": total(ms["counts"].values()),
+    ci_loss = b4_loss(ci_seen, ci_launches, dev, rng, int32_ops_per_s, smi, "phase 16, CI ring",
+                      ci=True)
+    return {"b5_stats": stats, "b5_launches": total(ms["counts"].values()), "ci_loss": ci_loss,
             "b5_by_path": b5_by_path, "ci_stats": ci_stats,
             "ci_launches": total(ci["counts"].values()),
             "ci_by_path": {k: {"fwd": v["fwd"], "bwd": v["bwd"]}
@@ -2125,10 +2186,13 @@ def main() -> int:
     held = torch.cuda.memory_allocated()  # by the earlier phases
     params = session_params(dev)
     times: dict = {}
-    (sk, rlk, gks), b4_keygen = _b4_counted(
-        dev, lambda: session_keys(params, SESSION_ROTATIONS, times))
-    out, b4_session = _b4_counted(
-        dev, lambda: session_run(params, sk, rlk, gks, SESSION_ROTATIONS, times))
+    b4_calls: dict = {}   # B4's calls and launches by shape, phases 8-13 (cold passes)
+    b4_launches: dict = {}
+    (sk, rlk, gks), b4_keygen = _b4_counted(dev, lambda: b4_shapes(
+        lambda: session_keys(params, SESSION_ROTATIONS, times), b4_calls, b4_launches))
+    out, b4_session = _b4_counted(dev, lambda: b4_shapes(
+        lambda: session_run(params, sk, rlk, gks, SESSION_ROTATIONS, times), b4_calls,
+        b4_launches))
     peak = torch.cuda.max_memory_allocated()
     # the warm pass: the same session again, every context and block made
     warm_times: dict = {}
@@ -2188,8 +2252,10 @@ def main() -> int:
           f"{len(bp.galois_elements())} galois keys, sparse secret weight "
           f"{bp.lit.ephemeral_secret_weight}")
     btimes: dict = {}
-    (bsk, bevk), b4_bkeys = _b4_counted(dev, lambda: boot_keys(bp, btimes))
-    boot, b4_bsession = _b4_counted(dev, lambda: boot_session(bp, bsk, bevk, btimes))
+    (bsk, bevk), b4_bkeys = _b4_counted(dev, lambda: b4_shapes(
+        lambda: boot_keys(bp, btimes), b4_calls, b4_launches))
+    boot, b4_bsession = _b4_counted(dev, lambda: b4_shapes(
+        lambda: boot_session(bp, bsk, bevk, btimes), b4_calls, b4_launches))
     bpeak = torch.cuda.max_memory_allocated()
     bwarm_times: dict = {}
     wkeys = boot_keys(bp, bwarm_times)
@@ -2273,9 +2339,15 @@ def main() -> int:
     boot_counts = boot["counts"]
     del cpu_bts, cpu_out, cpu_meta, boot, bwarm
 
-    b4 = wide_phases(dev, smi, rng, sms, int32_ops_per_s)
+    b4 = wide_phases(dev, smi, rng, sms, int32_ops_per_s, b4_calls, b4_launches)
     fork = matrix_phases(dev, smi, rng, int32_ops_per_s)
     assert "jax" not in sys.modules
+    loss = b4["loss"] + fork["ci_loss"]
+    print(f"phase b4 loss: B4 over phases 8-13 and 16: {len(loss)} shapes, "
+          f"{sum(r['launches'] for r in loss)} launches, loss launches x (device - bound) "
+          f"{sum(r['loss_ms'] for r in loss):.4f} ms summed | {smi}")
+    ntt_cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    (ntt_cuda.BUILD_DIR / "b4_shapes.json").write_text(json.dumps({"device": smi, "shapes": loss}))
 
     by_path = {d: {"step (phase 4)": launches[d], "session (phase 8, cold pass)":
                    out["counts"]["multiply"][d] + out["counts"]["rotations"][d],

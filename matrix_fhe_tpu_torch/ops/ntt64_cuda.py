@@ -7,7 +7,8 @@ compute the same function, the negacyclic NTT mod q of the reference
 (ring/ntt.go) with the output in bit-reversed order.  Here a residue is one
 64-bit word held in int64, canonical in [0, q), q < 2^61
 (``ops/modmath.py``), and the transform takes the tables of an
-``ops/rings.py:Ring`` (its plain psi powers and their Shoup quotients):
+``ops/rings.py:Ring`` (its plain psi powers, each beside its Shoup
+quotient, ``psi2`` / ``ipsi2``):
 
   * a CUDA tensor goes through the hand-written kernel; if the kernel cannot
     be built or launched, the call raises;
@@ -43,12 +44,12 @@ from matrix_fhe_tpu_torch.ops import ntt_cuda
 SOURCE = ntt_cuda._PKG / "csrc" / "ntt64.cu"
 MIN_N = 1 << 4
 MAX_N = 1 << 16
-# A CTA holds at most 2^14 words of a row (132 KB padded, csrc/ntt64.cu:
-# kMaxLocalLogN): N = 2^15 needs a cluster of 2, N = 2^16 one of 4.
+# A CTA holds at most 2^14 words of a row (139 KB padded, csrc/ntt64.cu:
+# kMaxLocalLogN): N = 2^15 needs a cluster of 2, N = 2^16 one of 4.  The
+# cluster sizes the kernel is built for (16 is a non-portable cluster).
 MAX_LOCAL_N = 1 << 14
-MAX_CLUSTER = 8
+CLUSTERS = (1, 2, 4, 8, 16)
 MIN_CLUSTER_N = 1 << 10
-MIN_SPLIT_N = 1 << 13
 LOGNS = range(MIN_N.bit_length() - 1, MAX_N.bit_length())
 
 # Kernel launches since the counts were last reset, by direction, for the
@@ -141,26 +142,35 @@ def check_input(x: torch.Tensor, ring, ring_type: str = "standard") -> None:
         raise ValueError(f"no NTT for device {x.device}")
 
 
+def clusters(n: int) -> list[int]:
+    """The cluster sizes the kernel is built for at N = n."""
+    return [c for c in CLUSTERS if (c == 1 or n >= MIN_CLUSTER_N) and n // c <= MAX_LOCAL_N]
+
+
 def geometry(rows: int, n: int, sms: int) -> int:
     """CTAs a row of N words is split over (the cluster size C) in a launch
-    of ``rows`` rows on a card of ``sms`` SMs.  B1's rule
-    (``ntt_cuda.geometry`` for one transform) under the one constraint of
-    64-bit words, that a CTA holds at most 2^14 of them:
-      * C = 1 below N = 2^13;
-      * C = 8 for a launch of few rows (rows * 8 <= 3 * sms) and from
-        N = 2^14 on;
-      * otherwise the smallest power of two C <= 8 with rows * C >= sms, and
-        at least N / 2^14."""
+    of ``rows`` rows on a card of ``sms`` SMs, the rule measured for this
+    kernel by ``tools/ntt_cluster_sweep.py --b4`` on the H100 (132 SMs):
+      * C = 1 below N = 2^13 (at 2^10, C = 1 is the fastest at 1-42 rows);
+      * from N = 2^15 on, C = 16 for a launch of at most sms / 32 rows (1-4
+        rows: 18-41% faster than C = 8), else C = 8 (9 and 42 rows: the
+        fastest; 126 rows at 2^15: the fastest inverse, 10% behind C = 4
+        forward);
+      * at N = 2^13 and 2^14, C = 8 up to 3 sms / 8 rows (1-42 rows: the
+        fastest or within 1%); beyond, C = 4 at 2^14 (45-190 rows: within
+        15% of the fastest, which moves between C = 2, 4 and 8 with the
+        rows) and C = 2 at 2^13 (126 rows: the fastest forward, within 1%
+        of C = 1 inverse).
+    A CTA holds at most 2^14 words, so C >= N / 2^14 in every branch."""
     if n > MAX_N:
         raise NotImplementedError(f"N={n}: the u64 NTT kernel takes N <= {MAX_N}")
-    c = max(1, n // MAX_LOCAL_N)
-    if n < MIN_SPLIT_N:
-        return c
-    if rows * MAX_CLUSTER <= 3 * sms or n >= 1 << 14:
-        return MAX_CLUSTER
-    while c < MAX_CLUSTER and rows * c < sms:
-        c *= 2
-    return c
+    if n < 1 << 13:
+        return 1
+    if n >= 1 << 15:
+        return 16 if rows * 32 <= sms else 8
+    if rows * 8 <= 3 * sms:
+        return 8
+    return 2 if n == 1 << 13 else 4
 
 
 @functools.lru_cache(maxsize=None)
@@ -171,9 +181,9 @@ def library(logn: int) -> ctypes.CDLL:
     ntt_cuda.build([logn], SOURCE)
     lib = ctypes.CDLL(str(ntt_cuda.library_path(logn, SOURCE)))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.mfhe_ntt64_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
-    lib.mfhe_ntt64_bwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
-    lib.mfhe_ntt64_ci_fwd.argtypes = lib.mfhe_ntt64_ci_bwd.argtypes = [p] * 6 + [i] * 5 + [p]
+    lib.mfhe_ntt64_fwd.argtypes = [p, p, p, p, i, i, i, i, i, p]
+    lib.mfhe_ntt64_bwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.mfhe_ntt64_ci_fwd.argtypes = lib.mfhe_ntt64_ci_bwd.argtypes = [p] * 5 + [i] * 5 + [p]
     for f in (lib.mfhe_ntt64_fwd, lib.mfhe_ntt64_bwd, lib.mfhe_ntt64_ci_fwd,
               lib.mfhe_ntt64_ci_bwd):
         f.restype = i
@@ -194,12 +204,11 @@ def launch(x: torch.Tensor, ring, fwd: bool, cluster: int | None = None,
     if cluster is None:
         cluster = geometry(rows, n, ntt_cuda._sm_count(dev))
     if ci:
-        tabs = ((ring.psi, ring.psi_shoup) if fwd else (ring.ipsi, ring.ipsi_shoup)) + \
-            (ring.moduli, ring.fold_row)
+        tabs = (ring.psi2 if fwd else ring.ipsi2, ring.moduli, ring.fold_row)
     elif fwd:
-        tabs = (ring.psi, ring.psi_shoup, ring.moduli)
+        tabs = (ring.psi2, ring.moduli)
     else:
-        tabs = (ring.ipsi, ring.ipsi_shoup, ring.moduli, ring.ninv_plain, ring.ninv_shoup)
+        tabs = (ring.ipsi2, ring.moduli, ring.ninv_plain, ring.ninv_shoup)
     for t in tabs:
         if t.get_device() != dev or not t.is_contiguous() or t.dtype != torch.int64:
             raise ValueError(f"u64 NTT tables must be contiguous int64 on {x.device}, "

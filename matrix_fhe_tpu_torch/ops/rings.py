@@ -189,8 +189,8 @@ class Dense3N:
 
 
 # tensor fields with one row a limb (sliced by ``Ring.limbs``)
-_LIMB_FIELDS = ("moduli", "qinv", "bhi", "blo", "ninv", "roots_fwd", "roots_bwd", "psi",
-                "psi_shoup", "ipsi", "ipsi_shoup", "ninv_plain", "ninv_shoup", "fold_row")
+_LIMB_FIELDS = ("moduli", "qinv", "bhi", "blo", "ninv", "roots_fwd", "roots_bwd", "psi2",
+                "ipsi2", "ninv_plain", "ninv_shoup", "fold_row")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -217,14 +217,13 @@ class Ring:
     # power-of-two rings: Montgomery psi powers, bit-reversed, [L, NthRoot/2]
     roots_fwd: torch.Tensor | None = None
     roots_bwd: torch.Tensor | None = None
-    # B4's tables [L, N]: plain psi powers (bit-reversed as roots_*, and
-    # re-indexed on the CI ring), their Shoup quotients floor(w * 2^64 / q)
-    # (the bits of a uint64), and the scale B4's inverse ends with and its
-    # quotient: N^-1, or 1 on the CI ring (its fold scales)
-    psi: torch.Tensor | None = None
-    psi_shoup: torch.Tensor | None = None
-    ipsi: torch.Tensor | None = None
-    ipsi_shoup: torch.Tensor | None = None
+    # B4's tables [L, N, 2]: plain psi powers (bit-reversed as roots_*, and
+    # re-indexed on the CI ring), each beside its Shoup quotient
+    # floor(w * 2^64 / q) (the bits of a uint64), one 16-byte pair a
+    # twiddle; and the scale B4's inverse ends with and its quotient: N^-1,
+    # or 1 on the CI ring (its fold scales)
+    psi2: torch.Tensor | None = None
+    ipsi2: torch.Tensor | None = None
     ninv_plain: torch.Tensor | None = None
     ninv_shoup: torch.Tensor | None = None
     # the CI ring: B4's fold row [L, 6] (``_ci_kernel_tables``)
@@ -382,6 +381,10 @@ def new_ring(n: int, moduli: list[int], ring_type: str = STANDARD,
         return torch.tensor([[mm.signed(v) for v in t[key]] for t in tabs],
                             dtype=torch.int64, device=device)
 
+    def pairs(key):  # [L, N, 2]: each table word beside its Shoup quotient
+        return torch.stack([_residues([t[key] for t in tabs], device), rows(key + "_shoup")],
+                           dim=-1)
+
     if ring_type == MATRIX:
         tabs = [_gen_3n_tables(nth_root, q) for q in moduli]
         omegas = [t["omega"] for t in tabs]
@@ -404,8 +407,7 @@ def new_ring(n: int, moduli: list[int], ring_type: str = STANDARD,
         extra.update(
             roots_fwd=_residues([t["roots_fwd"] for t in tabs], device),
             roots_bwd=_residues([t["roots_bwd"] for t in tabs], device),
-            psi=_residues([t["psi"] for t in tabs], device), psi_shoup=rows("psi_shoup"),
-            ipsi=_residues([t["ipsi"] for t in tabs], device), ipsi_shoup=rows("ipsi_shoup"),
+            psi2=pairs("psi"), ipsi2=pairs("ipsi"),
             ninv_plain=col("ninv_plain"), ninv_shoup=col("ninv_shoup"))
     return Ring(
         n=n, nth_root=nth_root, ring_type=ring_type, moduli_tuple=tuple(moduli),

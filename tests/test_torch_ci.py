@@ -92,8 +92,8 @@ def test_b4_tables_run_the_ci_stages(n):
     moduli = jp.NTTFriendlyPrimesGenerator(50, 4 * n).next_alternating_primes(2)
     ring = tr.new_ring(n, moduli, CI, device="cpu")
     q = ring.moduli[:, None]
-    for plain, shoup, mont_roots in ((ring.psi, ring.psi_shoup, ring.roots_fwd),
-                                     (ring.ipsi, ring.ipsi_shoup, ring.roots_bwd)):
+    for plain, shoup, mont_roots in ((ring.psi2[..., 0], ring.psi2[..., 1], ring.roots_fwd),
+                                     (ring.ipsi2[..., 0], ring.ipsi2[..., 1], ring.roots_bwd)):
         idx = [j + (1 << (j.bit_length() - 1)) for j in range(1, n)]
         # the plain powers behind the Montgomery table, re-indexed
         want = tr.mm.imform(mont_roots[:, idx], q, ring.qinv[:, None])
@@ -105,8 +105,8 @@ def test_b4_tables_run_the_ci_stages(n):
     assert ring.ninv_plain.tolist() == [1, 1]
     x = _t(np.stack([np.random.default_rng(n).integers(0, m, (3, n), dtype=np.uint64)
                      for m in moduli], axis=-2))
-    tab_f = ring.mform(ring.psi)
-    tab_b = ring.mform(ring.ipsi)
+    tab_f = ring.mform(ring.psi2[..., 0])
+    tab_b = ring.mform(ring.ipsi2[..., 0])
     one = ring.mform(torch.ones_like(ring.ninv_plain)[:, None])[:, 0]
     fwd = tr._ntt_standard(tr.ci_fold(x, ring, inverse=False), tab_f, ring.moduli, ring.qinv)
     assert torch.equal(fwd, ring.ntt(x))

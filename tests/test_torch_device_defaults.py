@@ -53,7 +53,7 @@ CONSTRUCTORS = {
     "ckks.new_parameters": lambda: ckks.new_parameters(
         ckks.CKKSParametersLiteral(logn=5, q=tuple(Q), p=tuple(P))).ring_q.moduli,
     "carry.carry": lambda: carry.carry(_zeros(2, N).astype("uint64")),
-    "wring.new_wide_ring": lambda: wring.new_wide_ring(N, WIDE[0]).psi,
+    "wring.new_wide_ring": lambda: wring.new_wide_ring(N, WIDE[0]).psi2,
     "wrns.gen_wide_decomposer": lambda: wrns.gen_wide_decomposer(*WIDE).mucs[0].src_q_f64,
     "wckks.context_from_arrays": lambda: wckks.context_from_arrays(
         N, *WIDE, _zeros(1, 2, 2, N), _zeros(1, 2, 2, N)).rlk_q,
@@ -62,7 +62,7 @@ CONSTRUCTORS = {
         q=WIDE[0], p=WIDE[1])),
     "rings.new_ring(matrix)": lambda: rings.new_ring(N3, Q3, rings.MATRIX).moduli,
     "rings.new_ring(conjugate_invariant)":
-        lambda: rings.new_ring(N, CI, rings.CONJUGATE_INVARIANT).psi,
+        lambda: rings.new_ring(N, CI, rings.CONJUGATE_INVARIANT).psi2,
     "ntt_3n.build_tables": lambda: ntt_3n.build_tables(N3, Q3[:1], [
         primes.find_3n_primitive_root(Q3[0], 3 * N3)[0]]).wr,
     "rlwe.new_parameters_3n": lambda: rlwe.new_parameters_3n(

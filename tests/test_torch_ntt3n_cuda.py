@@ -170,9 +170,7 @@ def test_ci_mode_every_cluster_size(cuda, logn):
     x = _operands((2,), moduli, n, logn)
     want_f = ntt64_cuda.ntt_ci_fwd_plain(x, ring_cpu)
     want_b = ntt64_cuda.ntt_ci_bwd_plain(x, ring_cpu)
-    cs = [c for c in (1, 2, 4, 8) if (c == 1 or n >= ntt64_cuda.MIN_CLUSTER_N)
-          and n // c <= ntt64_cuda.MAX_LOCAL_N]
-    for c in cs:
+    for c in ntt64_cuda.clusters(n):
         f = ntt64_cuda.launch(x.to(cuda), ring_dev, True, c, ci=True)
         b = ntt64_cuda.launch(x.to(cuda), ring_dev, False, c, ci=True)
         assert torch.equal(f.cpu(), want_f), c

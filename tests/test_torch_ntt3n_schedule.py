@@ -29,7 +29,7 @@ import numpy as np
 import pytest
 import torch
 
-from matrix_fhe_tpu_torch.ops import ntt3n_cuda, ntt_3n, rings
+from matrix_fhe_tpu_torch.ops import ntt3n_cuda, ntt64_cuda, ntt_3n, rings
 from matrix_fhe_tpu_torch.utils import primes as pr
 
 U = np.uint64
@@ -460,7 +460,7 @@ def test_ci_fused_fold_matches_ci_transform(logn):
     fold = ring.fold_row.numpy().view(U)
     # B4's inverse stages on the CI table, unscaled (its scale is 1 here)
     stages_b = rings._gs_stages(x, ring.roots_bwd, ring.moduli, ring.qinv, 1)
-    for C in (1, 2, 4, 8) if n >= 1 << 10 else (1,):
+    for C in ntt64_cuda.clusters(n):
         folded = np.zeros(x.shape, U)
         got_b = np.zeros(x.shape, U)
         for i in range(2):

@@ -10,12 +10,16 @@ jax, so on a machine with a card and no jax it runs on its own:
         --noconftest -o addopts=""
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
 
-from matrix_fhe_tpu_torch.fast import wring
+import chip_smoke
+from matrix_fhe_tpu_torch.fast import wckks, wring
 from matrix_fhe_tpu_torch.ops import ntt64_cuda, rings
+from matrix_fhe_tpu_torch.utils import launches
 from matrix_fhe_tpu_torch.utils import primes as pr
 
 
@@ -64,11 +68,13 @@ def test_kernel_matches_plain_every_size(cuda, logn):
            rings.new_ring(n, moduli, device=cuda))
 
 
-@pytest.mark.parametrize("logn", [10, 13, 14, 15, 16])
-@pytest.mark.parametrize("c", [1, 2, 4, 8])
+@pytest.mark.parametrize("logn", range(10, 17))
+@pytest.mark.parametrize("c", ntt64_cuda.CLUSTERS)
 def test_every_cluster_size(cuda, logn, c):
+    """Every cluster size the kernel is built for at every N that has a
+    cluster kernel (below 2^10 only C = 1, in the test above)."""
     n = 1 << logn
-    if n // c > 1 << 14:
+    if c not in ntt64_cuda.clusters(n):
         pytest.skip("a CTA holds at most 2^14 words")
     moduli = _moduli(n)
     _check(_operands((1,), moduli, n, c), rings.new_ring(n, moduli, device="cpu"),
@@ -88,6 +94,50 @@ def test_wide_ring_step_shapes(cuda, lead, limbs):
     assert (ntt64_cuda.fwd_launches - before[0], ntt64_cuda.bwd_launches - before[1]) == (1, 2)
 
 
+# bench.py's two wide step moduli at logN 14 (chip_smoke.py phase 11), and
+# the shapes its step gives B4 on each ring ([L] rows of one polynomial,
+# [2, L] a ciphertext, [4, L] the key switch's digits)
+WIDE_STEP_MODULI = {"pn14qp438": (wckks.PN14QP438_Q, wckks.PN14QP438_P),
+                    "wide61": (chip_smoke.WIDE61_Q, chip_smoke.WIDE61_P)}
+
+
+@pytest.mark.parametrize("name", sorted(WIDE_STEP_MODULI))
+def test_wide_step_moduli_and_shapes(cuda, name):
+    """B4 at the PN14QP438 and wide61 step's moduli and launch shapes, at
+    the cluster size the rule picks, against the plain version."""
+    n = 1 << 14
+    q, p = WIDE_STEP_MODULI[name]
+    for moduli, leads in ((q, [(), (2,), (4,)]), (p, [(2,), (4,)]), (q + p, [(), (2,)])):
+        ring_cpu = wring.new_wide_ring(n, list(moduli), device="cpu")
+        ring_dev = wring.new_wide_ring(n, list(moduli), device=cuda)
+        for lead in leads:
+            _check(_operands(lead, list(moduli), n, len(lead) + len(moduli)), ring_cpu, ring_dev)
+
+
+# phase 16's launch shapes of the CI ring at logN 14 (55 + 45x6-bit Q, a
+# 61-bit P): one polynomial over 1, 6 or 7 limbs
+@pytest.mark.parametrize("limbs", [1, 6, 7])
+def test_ci_mode_phase16_shapes(cuda, limbs):
+    """B4's CI mode at phase 16's shapes: equal to the plain CI transform on
+    the CPU, and still one kernel a call (three calls captured into a CUDA
+    graph hold three B4 kernel nodes and nothing else)."""
+    n = 1 << 14
+    moduli = [pr.NTTFriendlyPrimesGenerator(b, 4 * n).next_alternating_prime()
+              for b in (55, 45)] + pr.NTTFriendlyPrimesGenerator(
+                  45, 4 * n).next_alternating_primes(6)[1:] + [
+                  pr.NTTFriendlyPrimesGenerator(61, 4 * n).next_downstream_prime()]
+    moduli = moduli[:limbs]
+    ring_cpu = rings.new_ring(n, moduli, rings.CONJUGATE_INVARIANT, device="cpu")
+    ring_dev = rings.new_ring(n, moduli, rings.CONJUGATE_INVARIANT, device=cuda)
+    x = _operands((), moduli, n, limbs)
+    xd = x.to(cuda)
+    for fn, plain in ((ntt64_cuda.ntt_ci_fwd, ntt64_cuda.ntt_ci_fwd_plain),
+                      (ntt64_cuda.ntt_ci_bwd, ntt64_cuda.ntt_ci_bwd_plain)):
+        assert torch.equal(fn(xd, ring_dev).cpu(), plain(x, ring_cpu))
+        kernels = launches.graph_kernels(functools.partial(fn, xd, ring_dev))
+        assert len(kernels) == 3 and all("ntt64" in k for k in kernels), kernels
+
+
 def test_input_checks_and_refused_launches(cuda):
     n = 1 << 15
     moduli = _moduli(n)
@@ -99,7 +149,7 @@ def test_input_checks_and_refused_launches(cuda):
         ntt64_cuda.ntt_fwd(x[:, :2], ring)
     with pytest.raises(ValueError):
         ntt64_cuda.launch(x.transpose(-1, -2).contiguous().transpose(-1, -2), ring, True)
-    for c in (1, 3, 16):  # no kernel: 2^15 words do not fit one CTA; C a power of two <= 8
+    for c in (1, 3, 32):  # no kernel: 2^15 words do not fit one CTA; C a power of two <= 16
         with pytest.raises(RuntimeError, match="CUDA error"):
             ntt64_cuda.launch(x, ring, True, c)
 

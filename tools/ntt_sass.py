@@ -22,9 +22,14 @@ and spills come from ptxas's report in the build log beside each library.
 ``ntt64_bwd_kernel``).  Its 64-bit products compile to wide multiplies
 (``IMAD.WIDE.U32``), not ``IMAD.HI``, so a pass body is found by its
 shared-memory traffic instead: an innermost loop with as many 64-bit
-shared loads as stores, 2^R each, holds R 2^R / 2 butterflies (R <= 3);
-the hot pass is the body with the most butterflies (R = 3: 12), the longest
-of those (``hot_pass64``).
+shared loads as stores, 2^R each, is a loop over groups, one an
+iteration, and holds R 2^R / 2 butterflies (R <= 3; a pass that reads or
+writes the row in device memory is not counted); the hot pass is the body
+with the most butterflies (R = 3: 12), the longest of those
+(``hot_pass64``).  Where a thread takes at most two groups of a pass (the
+clusters of 8 and 16 at N = 2^14) the passes are unrolled straight code,
+not loops, and the kernel reports no pass: its C = 1 kernel, which loops,
+is the one to read.
 ``--b5``: kernel B5 (``csrc/ntt3n.cu``, ``ntt3n_fwd_kernel<C>``,
 ``ntt3n_bwd_kernel<C>`` for each cluster size C, one library for all N).
 Its passes are loops over groups held in registers (``b5_passes``): a loop
