@@ -190,15 +190,59 @@ a mixed-radix FFT), and the conjugate-invariant (CI) ring over B4's CI mode:
     to matrix_fhe_tpu_torch/_build/b4_shapes.json (for
     tools/ntt64_ab.py --shapes).
 
+Then ring switching, ring packing, the standard <-> CI bridge, the packed
+and sparse bootstrap and BGV / BFV, all on B4 (its standard and CI modes):
+each phase runs through the user's entry points in a cold and a warm pass
+(the same seeds; the warm pass must give the cold pass's keys and outputs),
+prints each stage's latency in both, and holds its outputs to the same
+calls on the CPU (the card's inputs and keys, the plain NTT):
+
+17. ring switching and packing at logN 12-14 on PN14QP438's chain (7 + 2
+    primes of 45-55 bits): gen_ring_swap_keys between logN 13 and 14,
+    switch_up of 8192 integer coefficients in [-50, 50) at scale 2^30 and
+    switch_down back (every coefficient within 0.01); expand of 16 values at
+    stride 2^10 at logN 14 (log_gap 10, its 28 galois keys) and pack of the
+    16 outputs (0.01 / 0.05); a RingPackingEvaluator(12, 14): split and
+    merge at 14, extract -> repack of the 16 indices at stride 2^10 in the
+    pairings (full, full), (naive, full), (full, naive) (0.05, repack
+    0.2: tests/test_ring_packing*.py's bounds); the noise of both ring-swap
+    keys (rlwe/noise.py); card == CPU for switch_up, switch_down, expand,
+    pack, split, merge and the monomials;
+18. the bridge between the standard ring at logN 15 and phase 16's CI ring
+    (its chain and CI keys): the swap keys, one standard ciphertext of 16384
+    reals, complex_to_real, a CI mul_relin + rescale, real_to_complex (and
+    the direct return); precision floors 15 / 12 bits (tests/test_bridge.py);
+    card == CPU for both switches;
+19. on phase 12's keys and wide bootstrapper (no second bootstrapper):
+    the galois keys of galois_elements_for_packed_bootstrap(params, 2),
+    bootstrap_packed of two ciphertexts of np.tile(v, 2) (v of 4096 values),
+    equal to its pack, bootstrap and expand run apart, and bootstrap_sparse
+    of two logN-13 ciphertexts through their ring-swap keys; min precision
+    above 8 and 7 bits (tests/test_boot_packed.py); card == CPU for the pack
+    into the bootstrap, the expand out of it and a switch_up;
+20. BGV and BFV at logN 14, T = 65537 (examples/bgv_template.py:25's chain,
+    55 + 45x2-bit Q, a 61-bit P): keys (relinearization, the column and row
+    rotations, the 4-diagonal linear transformation's), encode + encrypt of
+    two vectors of 16384 slots, add, mul_relin + rescale (BGV), mul_relin
+    (BFV), rotate_columns(1), rotate_rows, a bgv_circuits linear
+    transformation of 4 diagonals and a degree-7 Paterson-Stockmeyer
+    polynomial (BFV: the chain has 2 levels), each decoded and equal to
+    numpy mod T; the relinearization key's noise; card == CPU for both
+    encryptions and every result.
+Then B4 against its plain version at every shape phases 17-20 gave it
+(N = 2^12-2^15; on the CI ring with one kernel a call), and its loss table
+over them.
+
 Prints a JSON line of per-kernel results, one entry per kernel entry point:
 launches on its path (phase 4 for ntt_fwd/ntt_bwd, 6 for the chain, 7 for
 w22; counts zeroed just before each run and read just after; ntt_fwd/ntt_bwd
 also give launches_by_path: phase 4's, phase 8's cold pass, and phase 9's
 bootstrap and evaluate apart; ntt64_fwd/ntt64_bwd, kernel B4, phase 11's
 three PN14QP438 requests, with launches_by_path over phases 8, 9, 11, 12,
-13; ntt3n_fwd/ntt3n_bwd, kernel B5, phase 15's operations, with
+13 and 17-20; ntt3n_fwd/ntt3n_bwd, kernel B5, phase 15's operations, with
 launches_by_path over its keygen and each operation; ntt64_ci_fwd /
-ntt64_ci_bwd, B4 on the CI ring, phase 16's session, by stage), max
+ntt64_ci_bwd, B4 on the CI ring, phase 16's session, by stage, and phase
+18's CI side), max
 |kernel - plain| (phases 3 and 9 for B1, 10 for B4, 14 for B5, 16 for B4
 on the CI ring), the kernel's and plain version's times (phase 3's shapes
 summed, one launch each, for ntt_fwd/ntt_bwd; the PN14QP438 step's shapes
@@ -359,6 +403,26 @@ MATRIX_LITERAL = dict(order2=12, order3=1, logq=(50, 40, 40, 40, 40, 40), logp=(
 MATRIX_REPEATS = 10
 MATRIX_BOUND = 0.1
 CI_FLOOR = {"product": 28.8296 - 1, "rotation": 29.1074 - 1}
+# Phases 17-20: ring switching and packing at logN 12-14 on PN14QP438's chain
+# (coefficients at scale 2^30; tests/test_ring_switch.py's and
+# tests/test_ring_packing*.py's bounds), the bridge's and the packed and
+# sparse bootstrap's floors (tests/test_bridge.py:45,50,
+# tests/test_boot_packed.py:50,95), and BGV / BFV on
+# examples/bgv_template.py:25's chain at logN 14 (4 diagonals, degree 7).
+RS_LOGNS = (12, 13, 14)
+RS_SCALE = 1 << 30
+RS_LOG_GAP = 10
+RS_PAIRINGS = {"full, full": (False, False), "naive, full": (True, False),
+               "full, naive": (False, True)}
+RS_BOUNDS = {"switch_up": 0.01, "switch_down": 0.01, "expand": 0.01, "pack": 0.05,
+             "split": 0.05, "merge": 0.05, "extract": 0.05, "repack": 0.2}
+BRIDGE_FLOOR = {"switch": 15, "return": 12, "product": 12}
+PACKED_FLOOR = {"packed": 8, "sparse": 7}
+BGV_LITERAL = dict(logn=14, t=65537, logq=(55, 45, 45), logp=(61,))
+BGV_DIAGS = (0, 1, 2, 3)
+BGV_POLY = [5, 3, 0, 1, 7, 0, 2, 4]   # tests/test_bgv.py's degree 7
+PHASE_NAMES = {"17": "ring switching and packing", "18": "bridge, the standard ring",
+               "19": "packed and sparse bootstrap", "20": "BGV and BFV"}
 
 
 def _digest(tensors) -> str:
@@ -977,7 +1041,10 @@ def b4_loss(calls: dict, counts: dict, dev, rng, int32_ops_per_s, smi: str, what
               f"device queued {device * 1e3:7.2f} us, bound {bound * 1e3:6.3f} us, loss "
               f"{rows[-1]['loss_ms']:8.4f} ms | {smi}")
     print(f"phase b4 loss: {what}, {len(rows)} shapes, {sum(r['launches'] for r in rows)} "
-          f"launches: loss {sum(r['loss_ms'] for r in rows):.4f} ms summed | {smi}")
+          f"launches: device queued x launches "
+          f"{sum(r['launches'] * r['device_ms'] for r in rows):.4f} ms, bound x launches "
+          f"{sum(r['launches'] * r['bound_ms'] for r in rows):.4f} ms, loss "
+          f"{sum(r['loss_ms'] for r in rows):.4f} ms summed | {smi}")
     return rows
 
 
@@ -1396,7 +1463,8 @@ def wide_phases(dev, smi: str, rng, sms: int, int32_ops_per_s: float, b4_calls: 
     loss = b4_loss({**b4_calls, **b4_seen}, b4_launches, dev, rng, int32_ops_per_s, smi,
                    "phases 8-13")
     return {"size_rows": size_rows, "shape_rows": shape_rows, "stats": b4_stats,
-            "by_path": by_path, "loss": loss}
+            "by_path": by_path, "loss": loss,
+            "wide_boot": {"p": wp, "sk": wsk, "evk": wevk, "bts": wboot["bts"]}}
 
 # -- phases 14-16: the fork's rings: B5, Matrix-CKKS at N = 12288, CKKS on the CI ring --
 
@@ -1871,7 +1939,547 @@ def matrix_phases(dev, smi: str, rng, int32_ops_per_s: float) -> dict:
             "b5_by_path": b5_by_path, "ci_stats": ci_stats,
             "ci_launches": total(ci["counts"].values()),
             "ci_by_path": {k: {"fwd": v["fwd"], "bwd": v["bwd"]}
-                           for k, v in ci["counts"].items()}}
+                           for k, v in ci["counts"].items()},
+            "ci_session": {"params": ci["params"], "keys": ci["keys"]}}
+
+# -- phases 17-20: ring switching and packing, the bridge, the packed bootstrap, BGV/BFV --
+
+def _rs_params(device) -> dict:
+    """Phase 17's parameter sets at logN 12-14 on PN14QP438's chain (7 + 2
+    primes of 45-55 bits, all 1 mod 2^15)."""
+    from matrix_fhe_tpu_torch import rlwe
+    from matrix_fhe_tpu_torch.fast import wckks
+    return {ln: rlwe.new_parameters(rlwe.ParametersLiteral(
+        logn=ln, q=wckks.PN14QP438_Q, p=wckks.PN14QP438_P), device) for ln in RS_LOGNS}
+
+
+def _coeffs(params, sk, ct, scale) -> np.ndarray:
+    """The decrypted coefficients of ``ct``, centered, over ``scale``."""
+    from matrix_fhe_tpu_torch.rlwe import decryptor
+    from matrix_fhe_tpu_torch.schemes.ckks.encoder import crt_reconstruct_centered
+    pt = decryptor.decrypt(params, sk, ct)
+    ring = params.ring_q.at_level(pt.level)
+    v = ring.intt(pt.value) if pt.metadata.is_ntt else pt.value
+    return np.array([float(x) for x in crt_reconstruct_centered(
+        v.cpu().numpy(), params.q[:pt.level + 1])]) / scale
+
+
+def _encrypt_coeffs(params, sk, vals, site: int):
+    """The secret-key encryption of the coefficients vals * RS_SCALE."""
+    from matrix_fhe_tpu_torch.rlwe import encryptor
+    from matrix_fhe_tpu_torch.rlwe.elements import MetaData, Plaintext
+    arr = np.stack([(vals * RS_SCALE) % q for q in params.q]).astype(np.int64)
+    pt = Plaintext(value=params.ring_q.ntt(torch.from_numpy(arr).to(params.device)),
+                   metadata=MetaData(is_ntt=True))
+    return encryptor.encrypt(_gen(site), params, sk, pt)
+
+
+def _rs_inputs():
+    rng = np.random.default_rng(SEED)
+    return {"switch": rng.integers(-50, 50, 1 << (RS_LOGNS[-1] - 1)),
+            "gap": rng.integers(-100, 100, 1 << (RS_LOGNS[-1] - RS_LOG_GAP)),
+            "split": rng.integers(-100, 100, 1 << RS_LOGNS[-1]),
+            "extract": rng.integers(-100, 100, 1 << (RS_LOGNS[-1] - RS_LOG_GAP))}
+
+
+def _strided(vals, n: int, gap: int) -> np.ndarray:
+    out = np.zeros(n, dtype=np.int64)
+    out[::gap] = vals
+    return out
+
+
+def ring_switch_session(dev, times: dict) -> dict:
+    """Phase 17 on ``dev``: ring switching 2^13 <-> 2^14, expand -> pack of
+    16 values at stride 2^10 at 2^14, and a RingPackingEvaluator over
+    2^12-2^14 (split / merge, extract -> repack in three pairings)."""
+    from matrix_fhe_tpu_torch.rlwe import keys as K
+    from matrix_fhe_tpu_torch.rlwe import ring_packing as rpk
+    from matrix_fhe_tpu_torch.rlwe import ring_switch as rs
+    params = _rs_params(dev)
+    lo, hi = params[RS_LOGNS[-1] - 1], params[RS_LOGNS[-1]]
+    v = _rs_inputs()
+
+    def keygen():
+        sk_lo, sk_hi = K.gen_secret_key(_gen(501), lo), K.gen_secret_key(_gen(502), hi)
+        return sk_lo, sk_hi, rs.gen_ring_swap_keys(_gen(503), lo, hi, sk_lo, sk_hi)
+
+    sk_lo, sk_hi, (up, down) = _timed(times, "keygen: secrets + ring-swap keys", dev, keygen)
+    gels = sorted(set(rpk.galois_elements_for_expand(hi))
+                  | set(rpk.galois_elements_for_pack(hi, hi.log_n)))
+    gks = _timed(times, f"keygen: {len(gels)} galois keys (expand, pack)", dev, lambda: {
+        g: K.gen_galois_key(_gen(510 + i), hi, sk_hi, g) for i, g in enumerate(gels)})
+    out = {"keys": (sk_lo, sk_hi, up, down, gks)}
+    out["ct_lo"] = _encrypt_coeffs(lo, sk_lo, v["switch"], 504)
+    out["up"] = _timed(times, "switch_up 2^13 -> 2^14", dev,
+                       lambda: rs.switch_up(lo, hi, out["ct_lo"], up))
+    out["down"] = _timed(times, "switch_down 2^14 -> 2^13", dev,
+                         lambda: rs.switch_down(hi, lo, out["up"], down))
+    out["ct_gap"] = _encrypt_coeffs(hi, sk_hi, _strided(v["gap"], hi.n, 1 << RS_LOG_GAP), 505)
+    out["expand"] = _timed(times, "expand (log_gap 10, 16 outputs)", dev,
+                           lambda: rpk.expand(hi, out["ct_gap"], RS_LOG_GAP, gks))
+    out["pack"] = _timed(times, "pack (16 inputs)", dev, lambda: rpk.pack(
+        hi, out["expand"], input_log_gap=hi.log_n, zero_garbage_slots=True, gks=gks))
+
+    def make(ln, device):
+        return params[ln]
+
+    ev = _timed(times, "RingPackingEvaluator(12, 14) keygen", dev, lambda: rpk.RingPackingEvaluator(
+        _gen(520), make, RS_LOGNS[0], RS_LOGNS[-1], device=dev))
+    out["ev"] = ev
+    out["ct_split"] = _encrypt_coeffs(hi, ev.sk[hi.log_n], v["split"], 521)
+    out["split"] = _timed(times, "split 2^14", dev, lambda: ev.split(out["ct_split"], hi.log_n))
+    out["merge"] = _timed(times, "merge 2^13 -> 2^14", dev,
+                          lambda: ev.merge(*out["split"], hi.log_n))
+    out["ct_extract"] = _encrypt_coeffs(hi, ev.sk[hi.log_n],
+                                        _strided(v["extract"], hi.n, 1 << RS_LOG_GAP), 522)
+    idx = list(range(0, hi.n, 1 << RS_LOG_GAP))
+    for name, (ne, nr) in RS_PAIRINGS.items():
+        cts = _timed(times, f"extract 16 ({name})", dev,
+                     lambda: ev.extract(out["ct_extract"], idx, naive=ne))
+        out[f"extract {name}"] = cts
+        out[f"repack {name}"] = _timed(times, f"repack 16 ({name})", dev,
+                                       lambda: ev.repack(cts, naive=nr))
+    out["params"] = params
+    return out
+
+
+def check_ring_switch(s: dict) -> dict:
+    """Phase 17's bounds: every coefficient within tests/test_ring_switch.py's
+    0.01 and tests/test_ring_packing.py's / test_ring_packing_xdeg.py's bounds;
+    returns the max |error| of each check."""
+    params = s["params"]
+    lo, hi = params[RS_LOGNS[-1] - 1], params[RS_LOGNS[-1]]
+    sk_lo, sk_hi = s["keys"][:2]
+    v = _rs_inputs()
+    gap = 1 << RS_LOG_GAP
+    err = {}
+    got = _coeffs(hi, sk_hi, s["up"], RS_SCALE)
+    want = _strided(v["switch"], hi.n, 2)
+    err["switch_up"] = float(np.abs(got - want).max())
+    err["switch_down"] = float(np.abs(_coeffs(lo, sk_lo, s["down"], RS_SCALE) - v["switch"]).max())
+    e = 0.0
+    for j, (i, ct) in enumerate(sorted(s["expand"].items())):
+        c = _coeffs(hi, sk_hi, ct, RS_SCALE)
+        assert i == j * gap
+        e = max(e, abs(c[0] - v["gap"][j]), float(np.abs(c[1:]).max()))
+    err["expand"] = e
+    err["pack"] = float(np.abs(_coeffs(hi, sk_hi, s["pack"], RS_SCALE)
+                               - _strided(v["gap"], hi.n, gap)).max())
+    ev = s["ev"]
+    small = ev.params[hi.log_n - 1]
+    even, odd = s["split"]
+    err["split"] = max(float(np.abs(_coeffs(small, ev.sk[hi.log_n - 1], even, RS_SCALE)
+                                    - v["split"][::2]).max()),
+                       float(np.abs(_coeffs(small, ev.sk[hi.log_n - 1], odd, RS_SCALE)
+                                    - v["split"][1::2]).max()))
+    err["merge"] = float(np.abs(_coeffs(hi, ev.sk[hi.log_n], s["merge"], RS_SCALE)
+                                - v["split"]).max())
+    pmin, sk_min = ev.params[RS_LOGNS[0]], ev.sk[RS_LOGNS[0]]
+    for name, (ne, _) in RS_PAIRINGS.items():
+        e = 0.0
+        for j, (i, ct) in enumerate(sorted(s[f"extract {name}"].items())):
+            c = _coeffs(pmin, sk_min, ct, RS_SCALE)
+            e = max(e, abs(c[0] - v["extract"][j]), 0.0 if ne else float(np.abs(c[1:]).max()))
+        err[f"extract {name}"] = e
+        err[f"repack {name}"] = float(np.abs(_coeffs(hi, ev.sk[hi.log_n], s[f"repack {name}"],
+                                                     RS_SCALE)
+                                             - _strided(v["extract"], hi.n, gap)).max())
+    for what, e in err.items():
+        bound = RS_BOUNDS[what.split()[0]]
+        assert e <= bound, f"phase 17 {what}: max |error| {e} > {bound}"
+    return err
+
+
+def ring_switch_cpu(s: dict) -> dict:
+    """The card's switch_up / switch_down, expand / pack and split / merge
+    again on the CPU, from the card's inputs and keys, through the plain
+    NTT; returns the CPU's times."""
+    from matrix_fhe_tpu_torch.rlwe import ring_packing as rpk
+    from matrix_fhe_tpu_torch.rlwe import ring_switch as rs
+    cpu = torch.device("cpu")
+    params = _rs_params(cpu)
+    lo, hi = params[RS_LOGNS[-1] - 1], params[RS_LOGNS[-1]]
+    sk_lo, sk_hi, up, down, gks = _move(s["keys"], cpu)
+    t: dict = {}
+    for name, fn, want in (
+            ("switch_up", lambda: rs.switch_up(lo, hi, _move(s["ct_lo"], cpu), up), s["up"]),
+            ("switch_down", lambda: rs.switch_down(hi, lo, _move(s["up"], cpu), down),
+             s["down"]),
+            ("expand", lambda: rpk.expand(hi, _move(s["ct_gap"], cpu), RS_LOG_GAP, gks),
+             s["expand"]),
+            ("pack", lambda: rpk.pack(hi, _move(s["expand"], cpu), input_log_gap=hi.log_n,
+                                      zero_garbage_slots=True, gks=gks), s["pack"])):
+        assert _same(want, _timed(t, name, cpu, fn)), f"phase 17 {name}: card != CPU"
+    ev = s["ev"]
+    cev = rpk.RingPackingEvaluator.from_keys(params, *(_move(getattr(ev, f), cpu) for f in (
+        "sk", "evk_up", "evk_down", "gks_min")))
+    for f in ("x_pow2", "x_inv_pow2"):
+        assert _same(getattr(ev, f), getattr(cev, f)), f"phase 17 {f}: card != CPU"
+    split = _timed(t, "split", cpu, lambda: cev.split(_move(s["ct_split"], cpu), hi.log_n))
+    assert _same(s["split"], split), "phase 17 split: card != CPU"
+    merge = _timed(t, "merge", cpu, lambda: cev.merge(*_move(s["split"], cpu), hi.log_n))
+    assert _same(s["merge"], merge), "phase 17 merge: card != CPU"
+    return t
+
+
+def bridge_session(dev, times: dict, ci: dict) -> dict:
+    """Phase 18 on ``dev``: the standard ring at logN 15 over phase 16's
+    chain, its swap keys to phase 16's CI secret; complex_to_real of one
+    ciphertext of 16384 reals, a CI mul_relin + rescale under phase 16's
+    relinearization key, real_to_complex."""
+    from matrix_fhe_tpu_torch.rlwe import decryptor, encryptor
+    from matrix_fhe_tpu_torch.rlwe import keys as K
+    from matrix_fhe_tpu_torch.schemes import ckks
+    from matrix_fhe_tpu_torch.schemes.ckks import bridge
+    cp = ci["params"]
+    sk_ci, rlk_ci, _ = ci["keys"]
+    std = ckks.new_parameters(ckks.CKKSParametersLiteral(
+        logn=cp.log_n + 1, q=tuple(cp.q), p=tuple(cp.p),
+        log_default_scale=cp.log_default_scale), device=dev)
+    sk = _timed(times, "keygen secret (logN 15)", dev, lambda: K.gen_secret_key(_gen(601), std))
+    s2c, c2s = _timed(times, "keygen ring-swap keys (standard <-> CI)", dev,
+                      lambda: bridge.gen_ring_swap_keys_ci(_gen(602), std, sk, sk_ci))
+    v = np.random.default_rng(SEED).uniform(-1, 1, std.max_slots)
+    enc_std, enc_ci = ckks.Encoder(std), ckks.Encoder(cp)
+    ct = _timed(times, "encode + encrypt (standard)", dev,
+                lambda: encryptor.encrypt(_gen(603), std, sk, enc_std.encode(v + 0j)))
+    ct_ci = _timed(times, "complex_to_real", dev, lambda: bridge.complex_to_real(std, ct, s2c))
+    ev = ckks.Evaluator(cp, rlk=rlk_ci)
+    sq = _timed(times, "CI mul_relin + rescale", dev,
+                lambda: ev.rescale(ev.mul_relin(ct_ci, ct_ci)))
+    back = _timed(times, "real_to_complex", dev, lambda: bridge.real_to_complex(std, sq, c2s))
+    direct = bridge.real_to_complex(std, ct_ci, c2s)
+    dec = _timed(times, "decrypt + decode x3", dev, lambda: {
+        "switch": enc_ci.decode(decryptor.decrypt(cp, sk_ci, ct_ci)),
+        "return": enc_std.decode(decryptor.decrypt(std, sk, direct)),
+        "product": enc_std.decode(decryptor.decrypt(std, sk, back))})
+    prec = {"switch": ckks.precision_stats(v, np.real(dec["switch"])),
+            "return": ckks.precision_stats(v, np.real(dec["return"])),
+            "product": ckks.precision_stats(v * v, np.real(dec["product"]))}
+    return {"std": std, "keys": (sk, s2c, c2s), "ct": ct, "ct_ci": ct_ci, "sq": sq,
+            "back": back, "direct": direct, "prec": prec}
+
+
+def packed_boot_session(dev, times: dict, wide: dict) -> dict:
+    """Phase 19 on ``dev``: on phase 12's keys and wide bootstrapper, the
+    packed bootstrap of two ciphertexts of np.tile(v, 2) (its pack input
+    and its expand outputs kept apart), and the sparse bootstrap of two
+    logN-13 ciphertexts on the same chain through their ring-swap keys."""
+    from matrix_fhe_tpu_torch.circuits.ckks import bootstrapping as btp
+    from matrix_fhe_tpu_torch.rlwe import decryptor, encryptor
+    from matrix_fhe_tpu_torch.rlwe import keys as K
+    from matrix_fhe_tpu_torch.rlwe import ring_packing as rpk
+    from matrix_fhe_tpu_torch.rlwe import ring_switch as rs
+    from matrix_fhe_tpu_torch.schemes import ckks
+    p, sk, evk, bts = wide["p"], wide["sk"], wide["evk"], wide["bts"]
+    params = p.params
+    level = p.residual_level
+    extra = [g for g in btp.galois_elements_for_packed_bootstrap(params, 2) if g not in evk.gks]
+    gks = _timed(times, f"keygen: {len(extra)} galois keys (pack, expand)", dev, lambda: {
+        g: K.gen_galois_key(_gen(701 + i), params, sk, g) for i, g in enumerate(extra)})
+    evk.gks.update(gks)   # the bootstrapper holds this dict (bts.gks)
+    rng = np.random.default_rng(SEED)
+    half = params.max_slots // 2
+    va, vb = rng.uniform(-1, 1, half), rng.uniform(-1, 1, half)
+    enc = ckks.Encoder(params)
+    cts = _timed(times, "encode + encrypt x2 (tiled)", dev, lambda: [
+        encryptor.encrypt(_gen(710 + i), params, sk, enc.encode(np.tile(v, 2), level=level))
+        for i, v in enumerate((va, vb))])
+    packed_in = _timed(times, "pack (2 -> 1)", dev, lambda: rpk.pack(
+        params, {0: cts[0], 1: cts[1]}, input_log_gap=1, zero_garbage_slots=True, gks=bts.gks))
+    boot = _timed(times, "bootstrap of the packed ciphertext", dev,
+                  lambda: bts.bootstrap(packed_in))
+    outs = _timed(times, "expand (1 -> 2)", dev, lambda: rpk.expand(
+        params, boot, log_gap=0, gks=bts.gks, num_stages=1))
+    packed = _timed(times, "bootstrap_packed x2", dev, lambda: bts.bootstrap_packed(cts))
+    assert _same(packed, [outs[0], outs[1]]), "bootstrap_packed != pack, bootstrap, expand"
+    small = ckks.new_parameters(ckks.CKKSParametersLiteral(
+        logn=params.log_n - 1, q=tuple(params.q), p=tuple(params.p),
+        log_default_scale=p.lit.log_default_scale), device=dev)
+    sk_small = K.gen_secret_key(_gen(720), small)
+    up, down = _timed(times, "keygen ring-swap keys 2^13 <-> 2^14", dev,
+                      lambda: rs.gen_ring_swap_keys(_gen(721), small, params, sk_small, sk))
+    ns = small.max_slots
+    sa, sb = rng.uniform(-1, 1, ns), rng.uniform(-1, 1, ns)
+    enc_small = ckks.Encoder(small)
+    scts = _timed(times, "encode + encrypt x2 (logN 13)", dev, lambda: [
+        encryptor.encrypt(_gen(730 + i), small, sk_small, enc_small.encode(v, level=level))
+        for i, v in enumerate((sa, sb))])
+    sparse = _timed(times, "bootstrap_sparse x2", dev,
+                    lambda: bts.bootstrap_sparse(scts, small, up, down))
+    dec = {"packed": [enc.decode(decryptor.decrypt(params, sk, o))[:half] for o in packed],
+           "sparse": [enc_small.decode(decryptor.decrypt(small, sk_small, o))[:ns]
+                      for o in sparse]}
+    prec = {what: [ckks.precision_stats(w, np.real(d)) for w, d in zip(want, dec[what])]
+            for what, want in (("packed", (va, vb)), ("sparse", (sa, sb)))}
+    return {"gks": gks, "cts": cts, "packed_in": packed_in, "boot": boot, "outs": outs,
+            "packed": packed, "small": small, "sk_small": sk_small, "swap": (up, down),
+            "scts": scts, "sparse": sparse, "prec": prec}
+
+
+def _bgv_model(v1, v2, diags) -> dict:
+    """The slots each of phase 20's operations should hold, exactly mod T."""
+    t = BGV_LITERAL["t"]
+    a, b = v1.astype(object), v2.astype(object)
+    half = len(v1) // 2
+    vm = v1.reshape(2, half)
+    lt = np.zeros_like(vm)
+    for k, d in diags.items():
+        lt = (lt + d.reshape(2, half) * np.roll(vm, -k, axis=1)) % t
+    poly = np.zeros(len(v1), dtype=object)
+    for c in reversed(BGV_POLY):
+        poly = (poly * a + c) % t
+    return {"add": (a + b) % t, "mul_relin + rescale (BGV)": (a * b) % t,
+            "mul_relin (BFV)": (a * b) % t,
+            "rotate_columns 1": np.concatenate([np.roll(v1[:half], -1), np.roll(v1[half:], -1)]),
+            "rotate_rows": np.concatenate([v1[half:], v1[:half]]),
+            f"lintrans {len(diags)} diagonals": lt.reshape(-1),
+            "evaluate_polynomial_ps degree 7 (BFV)": poly}
+
+
+def bgv_session(dev, times: dict, keys=None) -> dict:
+    """Phase 20 on ``dev``: BGV / BFV at logN 14, T = 65537, keys from CPU
+    generators (or ``keys``), the operations on two encrypted vectors of
+    16384 slots, each decrypted and decoded."""
+    from matrix_fhe_tpu_torch.circuits import bgv_circuits, lintrans as lt
+    from matrix_fhe_tpu_torch.rlwe import decryptor, encryptor
+    from matrix_fhe_tpu_torch.rlwe import keys as K
+    from matrix_fhe_tpu_torch.schemes import bgv
+    params = _timed(times, "parameters", dev, lambda: bgv.new_parameters(
+        bgv.BGVParametersLiteral(**BGV_LITERAL), device=dev))
+    t = params.t
+    cols = params.n // 2
+    ltp = lt.LinearTransformationParameters(
+        diagonals_index_list=list(BGV_DIAGS), level_q=params.max_level,
+        level_p=params.max_level_p, scale=1, log_dimensions=(1, params.log_n - 1),
+        log_bsgs_ratio=0)
+    gels = sorted({params.galois_element(1), params.galois_element_inverse()}
+                  | set(lt.galois_elements(params, list(BGV_DIAGS), cols, 0)))
+    if keys is None:
+        def keygen():
+            sk = K.gen_secret_key(_gen(801), params)
+            return sk, K.gen_relinearization_key(_gen(802), params, sk), {
+                g: K.gen_galois_key(_gen(810 + i), params, sk, g) for i, g in enumerate(gels)}
+        keys = _timed(times, f"keygen (secret, relinearization, {len(gels)} galois)", dev,
+                      keygen)
+    else:
+        keys = _move(keys, dev)
+    sk, rlk, gks = keys
+    rng = np.random.default_rng(SEED)
+    v1, v2 = (rng.integers(0, t, params.n, dtype=np.int64) for _ in range(2))
+    diags = {k: rng.integers(0, t, params.n, dtype=np.int64) for k in BGV_DIAGS}
+    enc = bgv.Encoder(params)
+    cts = _timed(times, "encode + encrypt x2", dev, lambda: [
+        encryptor.encrypt(_gen(830 + i), params, sk, enc.encode(v))
+        for i, v in enumerate((v1, v2))])
+    ev = bgv.Evaluator(params, rlk=rlk, galois_keys=gks)
+    evf = bgv.Evaluator(params, rlk=rlk, galois_keys=gks, scale_invariant=True)
+    transform = _timed(times, "lintrans encode (4 diagonals)", dev,
+                       lambda: bgv_circuits.new_linear_transformation(params, enc, diags, ltp))
+    a, b = cts
+    ops = {"add": lambda: ev.add(a, b),
+           "mul_relin + rescale (BGV)": lambda: ev.rescale(ev.mul_relin(a, b)),
+           "mul_relin (BFV)": lambda: evf.mul_relin(a, b),
+           "rotate_columns 1": lambda: ev.rotate_columns(a, 1),
+           "rotate_rows": lambda: ev.rotate_rows(a),
+           f"lintrans {len(BGV_DIAGS)} diagonals": lambda: bgv_circuits.evaluate(
+               params, a, transform, gks),
+           "evaluate_polynomial_ps degree 7 (BFV)": lambda: bgv_circuits.evaluate_polynomial_ps(
+               evf, enc, a, BGV_POLY)}
+    outs = {name: _timed(times, name, dev, fn) for name, fn in ops.items()}
+    dec = _timed(times, f"decrypt + decode x{len(outs)}", dev, lambda: {
+        name: enc.decode(decryptor.decrypt(params, sk, ct)) for name, ct in outs.items()})
+    return {"params": params, "keys": keys, "cts": cts, "outs": outs, "dec": dec,
+            "model": _bgv_model(v1, v2, diags)}
+
+
+def ring_phases(dev, smi: str, rng, int32_ops_per_s: float, wide: dict, ci: dict) -> dict:
+    """Phases 17-20 (see the module's docstring); returns what the kernels
+    line reports of B4 on these paths and B4's loss by shape over them."""
+    from matrix_fhe_tpu_torch.circuits.ckks import bootstrapping as btp
+    from matrix_fhe_tpu_torch.fast import fboot
+    from matrix_fhe_tpu_torch.ops import ntt64_cuda
+    from matrix_fhe_tpu_torch.rlwe import noise
+    from matrix_fhe_tpu_torch.rlwe import ring_packing as rpk
+    from matrix_fhe_tpu_torch.rlwe import ring_switch as rs
+    from matrix_fhe_tpu_torch.schemes import ckks
+    from matrix_fhe_tpu_torch.schemes.ckks import bridge
+    cpu = torch.device("cpu")
+    seen: dict = {}       # B4's calls by (direction, shape, moduli), phases 17-20
+    launches: dict = {}   # and its launches there (cold passes), by phase
+    ci_seen: dict = {}
+    ci_launches: dict = {}
+    counts: dict = {}
+
+    def cold_warm(phase, fn, ci_ring=False):
+        """fn(times) in a cold pass (B4's calls recorded and its launches
+        counted, on the CI ring too with ``ci_ring``) and a warm one with the
+        same seeds: (cold outputs, cold times, warm times, warm outputs)."""
+        cold_t, warm_t = {}, {}
+
+        def cold():
+            def run():
+                return b4_shapes(lambda: fn(cold_t), seen, launches.setdefault(phase, {}))
+            return _shapes_in(ntt64_cuda, run, ci_seen, CI_ENTRIES, ci_launches) \
+                if ci_ring else run()
+
+        out, counts[phase] = _b4_counted(dev, cold)
+        return out, cold_t, warm_t, fn(warm_t)
+
+    def report(tag, cold_t, warm_t):
+        for name, ms in cold_t.items():
+            print(f"phase {tag}: {name:48s} cold {ms:10.3f} ms, warm {warm_t[name]:10.3f} ms"
+                  f" | {smi}")
+
+    # -- 17. ring switching and packing at logN 12-14 ------------------------------------
+    s, cold_t, warm_t, warm = cold_warm("17", lambda t: ring_switch_session(dev, t))
+    for k in ("keys", "up", "down", "expand", "pack", "split", "merge",
+              *(f"{w} {n}" for n in RS_PAIRINGS for w in ("extract", "repack"))):
+        assert _same(s[k], warm[k]), f"phase 17 {k}: warm pass != cold pass"
+    del warm
+    hi = s["params"][RS_LOGNS[-1]]
+    print(f"phase ring switch: PN14QP438's chain ({len(hi.q)} + {len(hi.p)} primes of "
+          f"{min(q.bit_length() for q in hi.q + hi.p)}-{max(q.bit_length() for q in hi.q + hi.p)}"
+          f" bits) at logN {RS_LOGNS}; {len(s['keys'][4])} galois keys at logN 14, the "
+          f"RingPackingEvaluator's {len(s['ev'].gks_min)} at logN 12")
+    report("ring switch", cold_t, warm_t)
+    err = check_ring_switch(s)
+    for what, e in err.items():
+        print(f"phase ring switch: {what:16s} max |error| {e:.3e} (bound "
+              f"{RS_BOUNDS[what.split()[0]]})")
+    sk_lo, sk_hi, up, down, _ = s["keys"]
+    lo = s["params"][RS_LOGNS[-1] - 1]
+    emb = rs.embed_secret_key(lo, hi, sk_lo)
+    key_noise = {"up": noise.noise_evaluation_key(hi, up.gadget, emb.value.q, sk_hi),
+                 "down": noise.noise_evaluation_key(hi, down.gadget, sk_hi.value.q, emb)}
+    print(f"phase ring switch: key noise (log2 std, rlwe/noise.py) evk_up "
+          f"{key_noise['up']:.4f} bits, evk_down {key_noise['down']:.4f} bits")
+    cpu_t = ring_switch_cpu(s)
+    print("phase ring switch: card == CPU (the card's inputs and keys, the plain NTT) for "
+          "switch_up, switch_down, expand, pack, split, merge and the monomials; CPU "
+          + ", ".join(f"{k} {v / 1e3:.2f} s" for k, v in cpu_t.items()))
+    print(f"phase ring switch: B4 launches {counts['17']}")
+    del s
+
+    # -- 18. the bridge, standard logN 15 <-> CI logN 14 ---------------------------------
+    b, cold_t, warm_t, warm = cold_warm("18", lambda t: bridge_session(dev, t, ci), ci_ring=True)
+    for k in ("keys", "ct", "ct_ci", "sq", "back"):
+        assert _same(b[k], warm[k]), f"phase 18 {k}: warm pass != cold pass"
+    del warm
+    print(f"phase bridge: standard logN {b['std'].log_n} ({b['std'].max_slots} slots) <-> CI "
+          f"logN {ci['params'].log_n} over phase 16's chain and CI keys")
+    report("bridge", cold_t, warm_t)
+    for what, st in b["prec"].items():
+        floor = BRIDGE_FLOOR[what]
+        print(f"phase bridge: precision after {what:8s} mean {st.avg_precision:.4f} bits, min "
+              f"{st.min_precision:.4f} bits (floor {floor}: tests/test_bridge.py) | {smi}")
+        assert st.min_precision >= floor, f"bridge {what}: below the floor"
+    cstd = ckks.new_parameters(ckks.CKKSParametersLiteral(
+        logn=b["std"].log_n, q=tuple(b["std"].q), p=tuple(b["std"].p),
+        log_default_scale=b["std"].log_default_scale), device=cpu)
+    _, s2c, c2s = _move(b["keys"], cpu)
+    assert _same(b["ct_ci"], bridge.complex_to_real(cstd, _move(b["ct"], cpu), s2c)), \
+        "bridge complex_to_real: card != CPU"
+    assert _same(b["back"], bridge.real_to_complex(cstd, _move(b["sq"], cpu), c2s)), \
+        "bridge real_to_complex: card != CPU"
+    print(f"phase bridge: card == CPU (the card's inputs and keys, the plain NTT) for "
+          f"complex_to_real and real_to_complex; B4 launches (standard ring) {counts['18']}, "
+          f"on the CI ring {sum(ci_launches.values())}")
+    del b
+
+    # -- 19. the packed and sparse bootstrap at logN 14 ----------------------------------
+    pb, cold_t, warm_t, warm = cold_warm("19", lambda t: packed_boot_session(dev, t, wide))
+    for k in ("cts", "packed_in", "boot", "packed", "scts", "sparse"):
+        assert _same(pb[k], warm[k]), f"phase 19 {k}: warm pass != cold pass"
+    del warm
+    wp = wide["p"]
+    els = btp.galois_elements_for_packed_bootstrap(wp.params, 2)
+    print(f"phase packed boot: phase 12's wide_parameters_literal({LOGN}) keys and "
+          f"bootstrapper (sparse secret weight {wp.lit.ephemeral_secret_weight}, residual level "
+          f"{wp.residual_level}); galois_elements_for_packed_bootstrap(params, 2) = {els}: "
+          f"{len(els) - len(pb['gks'])} already in the bootstrap's key set, "
+          f"{len(pb['gks'])} added")
+    report("packed boot", cold_t, warm_t)
+    for what, sts in pb["prec"].items():
+        floor = PACKED_FLOOR[what]
+        for i, st in enumerate(sts):
+            out = pb[what][i]
+            print(f"phase packed boot: {what} output {i}: mean {st.avg_precision:.4f} bits, min "
+                  f"{st.min_precision:.4f} bits (floor: min above {floor}, "
+                  f"tests/test_boot_packed.py), level {out.level} | {smi}")
+            assert out.level == wp.residual_level
+            assert st.min_precision > floor, f"{what} bootstrap: below the floor"
+    cparams = btp.Parameters(fboot.wide_parameters_literal(LOGN), device=cpu).params
+    cgks = _move({g: wide["evk"].gks[g] for g in btp.galois_elements_for_packed_bootstrap(
+        cparams, 2)}, cpu)
+    assert _same(pb["packed_in"], rpk.pack(cparams, _move({0: pb["cts"][0], 1: pb["cts"][1]}, cpu),
+                                           input_log_gap=1, zero_garbage_slots=True, gks=cgks)), \
+        "phase 19 pack: card != CPU"
+    assert _same(pb["outs"], rpk.expand(cparams, _move(pb["boot"], cpu), log_gap=0, gks=cgks,
+                                        num_stages=1)), "phase 19 expand: card != CPU"
+    csmall = ckks.new_parameters(ckks.CKKSParametersLiteral(
+        logn=LOGN - 1, q=tuple(cparams.q), p=tuple(cparams.p),
+        log_default_scale=wp.lit.log_default_scale), device=cpu)
+    cup, _ = _move(pb["swap"], cpu)
+    assert _same(rs.switch_up(csmall, cparams, _move(pb["scts"][0], cpu), cup),
+                 rs.switch_up(pb["small"], wp.params, pb["scts"][0], pb["swap"][0])), \
+        "phase 19 switch_up: card != CPU"
+    print(f"phase packed boot: card == CPU (the card's inputs and keys, the plain NTT) for the "
+          f"pack into the bootstrap, the expand out of it and a switch_up; bootstrap_packed == "
+          f"pack, bootstrap, expand; B4 launches {counts['19']}")
+    evk = wide["evk"]
+    for g in pb["gks"]:
+        del evk.gks[g]
+    del pb
+
+    # -- 20. BGV and BFV at logN 14, T = 65537 ---------------------------------------------
+    bg, cold_t, warm_t, warm = cold_warm("20", lambda t: bgv_session(dev, t))
+    for k in ("keys", "cts", "outs", "dec"):
+        assert _same(bg[k], warm[k]), f"phase 20 {k}: warm pass != cold pass"
+    del warm
+    bp = bg["params"]
+    print(f"phase bgv: logN {bp.log_n}, T = {bp.t} ({bp.n_t} slots), Q "
+          f"{[q.bit_length() for q in bp.q]} bits, P {[p.bit_length() for p in bp.p]} bits, "
+          f"QMul {[q.bit_length() for q in bp.ring_qmul.moduli_tuple]} bits")
+    report("bgv", cold_t, warm_t)
+    for name, got in bg["dec"].items():
+        ok = np.array_equal(np.asarray(got).astype(object) % bp.t, bg["model"][name] % bp.t)
+        print(f"phase bgv: {name:40s} level out {bg['outs'][name].level}, decoded == numpy mod T:"
+              f" {ok}")
+        assert ok, f"phase 20 {name}: decoded != numpy mod T"
+    rlk_noise = noise.noise_relinearization_key(bp, bg["keys"][1], bg["keys"][0])
+    print(f"phase bgv: relinearization key noise (log2 std, rlwe/noise.py) {rlk_noise:.4f} bits")
+    cbg = bgv_session(cpu, {}, keys=bg["keys"])
+    assert _same(bg["cts"], cbg["cts"]), "phase 20 encryptions: card != CPU"
+    for name in bg["outs"]:
+        assert _same(bg["outs"][name], cbg["outs"][name]), f"phase 20 {name}: card != CPU"
+        assert np.array_equal(bg["dec"][name], cbg["dec"][name]), f"phase 20 {name}: decoded"
+    print(f"phase bgv: card == CPU (the card's keys, the plain NTT) for both encryptions and "
+          f"every result, limb for limb and decoded; B4 launches {counts['20']}")
+    del bg, cbg
+
+    # -- B4 at every shape phases 17-20 gave it ---------------------------------------------
+    shape_rows = check_b4_shapes(seen, dev, rng)
+    for d, shape, c, err_, _ in shape_rows:
+        assert err_ == 0, f"B4 {d} {shape}: kernel != plain ({err_})"
+    ns = sorted({shape[-1] for _, shape, *_ in shape_rows})
+    print(f"phase b4: B4 at the {len(shape_rows)} shapes (direction, shape, moduli) of phases "
+          f"17-20, N = {ns}: kernel == plain at every one")
+    ci_rows = check_ci_shapes(ci_seen, dev, rng)
+    for d, shape, err_, _, names, _ in ci_rows:
+        assert err_ == 0, f"B4 on the CI ring {d} {shape}: kernel != plain ({err_})"
+        assert len(names) == 3 and all("ntt64" in k for k in names), (d, shape, names)
+    print(f"phase b4: B4 on the CI ring at the {len(ci_rows)} shapes of phase 18: kernel == "
+          f"plain, one kernel a call")
+    loss = [row for phase, counted in launches.items() for row in b4_loss(
+        seen, counted, dev, rng, int32_ops_per_s, smi, f"phase {phase}, {PHASE_NAMES[phase]}")]
+    ci_loss = b4_loss(ci_seen, ci_launches, dev, rng, int32_ops_per_s, smi,
+                      "phase 18, CI ring", ci=True)
+    return {"shape_rows": shape_rows, "ci_rows": ci_rows, "loss": loss, "ci_loss": ci_loss,
+            "by_path": {f"{PHASE_NAMES[k]} (phase {k})": v for k, v in counts.items()},
+            "ci_launches": {d: sum(n for (dd, *_), n in ci_launches.items() if dd == d)
+                            for d in ("fwd", "bwd")}}
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1893,7 +2501,8 @@ def main() -> int:
     t0 = time.perf_counter()
     from matrix_fhe_tpu_torch.ops import ntt3n_cuda
     built = ntt_cuda.build_all([(ntt_cuda.SOURCE, logn) for logn in PATH_LOGNS]
-                               + [(ntt64_cuda.SOURCE, logn) for logn in B4_SIZES]
+                               + [(ntt64_cuda.SOURCE, logn)
+                                  for logn in sorted(set(B4_SIZES) | set(RS_LOGNS))]
                                + [(ntt3n_cuda.SOURCE, ntt3n_cuda.BUILD_KEY)])
     print(f"phase build: built {len(built)} libraries, "
           f"{', '.join(ntt_cuda.library_path(logn, src).name for src, logn in built)}, in "
@@ -2341,9 +2950,11 @@ def main() -> int:
 
     b4 = wide_phases(dev, smi, rng, sms, int32_ops_per_s, b4_calls, b4_launches)
     fork = matrix_phases(dev, smi, rng, int32_ops_per_s)
+    rings = ring_phases(dev, smi, rng, int32_ops_per_s, b4.pop("wide_boot"),
+                        fork.pop("ci_session"))
     assert "jax" not in sys.modules
-    loss = b4["loss"] + fork["ci_loss"]
-    print(f"phase b4 loss: B4 over phases 8-13 and 16: {len(loss)} shapes, "
+    loss = b4["loss"] + fork["ci_loss"] + rings["loss"] + rings["ci_loss"]
+    print(f"phase b4 loss: B4 over phases 8-13 and 16-20: {len(loss)} shapes, "
           f"{sum(r['launches'] for r in loss)} launches, loss launches x (device - bound) "
           f"{sum(r['loss_ms'] for r in loss):.4f} ms summed | {smi}")
     ntt_cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -2361,10 +2972,12 @@ def main() -> int:
                 b4_keygen[d] + b4_session[d],
             "bootstrap setup (phase 9, cold pass: keygen + make_fast_bootstrapper to decode)":
                 b4_bkeys[d] + b4_bsession[d],
-            **{k: v[d] for k, v in b4["by_path"].items()}}
+            **{k: v[d] for k, v in b4["by_path"].items()},
+            **{k: v[d] for k, v in rings["by_path"].items()}}
         launches[f"ntt64_{d}"] = 3 * b4["by_path"]["wide step PN14QP438 (phase 11, a request)"][d]
         stats[f"ntt64_{d}"] = dict(b4["stats"][d], max_abs_err=max(
-            [r[-1] for r in b4["size_rows"]] + [r[3] for r in b4["shape_rows"] if r[0] == d]))
+            [r[-1] for r in b4["size_rows"]] + [r[3] for r in b4["shape_rows"] + rings["shape_rows"]
+                                                if r[0] == d]))
         REPLACES[f"ntt64_{d}"] = B4_REPLACES[d]
     for d in ("fwd", "bwd"):
         by_path[f"ntt3n_{d}"] = {k: v[d] for k, v in fork["b5_by_path"].items()}
@@ -2373,8 +2986,10 @@ def main() -> int:
         REPLACES[f"ntt3n_{d}"] = B5_REPLACES[d]
         by_path[f"ntt64_ci_{d}"] = {f"CKKS on the CI ring, {k} (phase 16)": v[d]
                                     for k, v in fork["ci_by_path"].items()}
+        by_path[f"ntt64_ci_{d}"]["bridge, the CI side (phase 18)"] = rings["ci_launches"][d]
         launches[f"ntt64_ci_{d}"] = fork["ci_launches"][d]
-        stats[f"ntt64_ci_{d}"] = fork["ci_stats"][d]
+        stats[f"ntt64_ci_{d}"] = dict(fork["ci_stats"][d], max_abs_err=max(
+            [fork["ci_stats"][d]["max_abs_err"]] + [r[2] for r in rings["ci_rows"] if r[0] == d]))
         REPLACES[f"ntt64_ci_{d}"] = CI_REPLACES[d]
     kernels = []
     for d in ("fwd", "bwd", "chain_fwd", "chain_bwd", "w22_fwd", "w22_bwd", "ntt64_fwd",

@@ -8,7 +8,12 @@ ciphertexts and plaintexts with their metadata, the bootstrapping
 parameters, literal and evaluation keys (the encapsulation keys included),
 the 3N ring's literals (RLWE and Matrix-CKKS) and its factorized NTT
 tables (with kernel B5's, rebuilt from each limb's modulus and root, which
-its twist row gives back), and dicts, lists and tuples of them.  It works
+its twist row gives back), the BGV literal and parameters (their ring_t and
+QMul basis rebuilt from T and the chain), a RingPackingEvaluator (its
+parameters, secrets, ring-switching and galois keys and monomials), and
+dicts, lists and tuples of them (the ring-swap key pairs of
+``rlwe/ring_switch.py`` and ``schemes/ckks/bridge.py`` among them), and
+numpy arrays (their words).  It works
 by the class name and the field names the two packages share, so it
 imports nothing of the JAX package; any object with those fields as numpy
 arrays is carried the same way.  64-bit words keep their
@@ -43,6 +48,8 @@ from matrix_fhe_tpu_torch.ops import wide
 from matrix_fhe_tpu_torch.rlwe import elements as el
 from matrix_fhe_tpu_torch.rlwe import keys as K
 from matrix_fhe_tpu_torch.rlwe import params as rp
+from matrix_fhe_tpu_torch.rlwe import ring_packing as rpk
+from matrix_fhe_tpu_torch.schemes import bgv
 from matrix_fhe_tpu_torch.schemes.ckks import params as cp
 from matrix_fhe_tpu_torch.schemes.matrix_ckks import scheme as mc
 from matrix_fhe_tpu_torch.utils.device import resolve_device
@@ -83,6 +90,8 @@ def carry(obj, device="cuda"):
 
     if obj is None:
         return None
+    if isinstance(obj, np.ndarray):
+        return words(obj)
     if isinstance(obj, dict):
         return {k: go(v) for k, v in obj.items()}
     if isinstance(obj, (list, tuple)):
@@ -119,6 +128,17 @@ def carry(obj, device="cuda"):
             **{f: torch.from_numpy(np.asarray(getattr(obj, f), dtype=np.int64)).to(device)
                for f in ("perm", "iperm")},
             **ntt_3n.kernel_tables(int(obj.n), moduli, omegas, perm.tolist(), device))
+    if name == "BGVParametersLiteral":
+        return _literal(bgv.BGVParametersLiteral, obj)
+    if name == "BGVParameters":
+        return bgv.new_parameters(bgv.BGVParametersLiteral(
+            logn=obj.n.bit_length() - 1, t=int(obj.t), q=tuple(obj.q), p=tuple(obj.p),
+            xe=go(obj.xe), xs=go(obj.xs)), device)
+    if name == "RingPackingEvaluator":
+        return rpk.RingPackingEvaluator.from_keys(
+            go(obj.params), go(obj.sk), go(obj.evk_up), go(obj.evk_down), go(obj.gks_min),
+            *({ln: [words(m) for m in ms] for ln, ms in getattr(obj, f).items()}
+              for f in ("x_pow2", "x_inv_pow2")))
     if name == "CKKSParameters":
         return cp.new_parameters(cp.CKKSParametersLiteral(
             logn=obj.n.bit_length() - 1, q=tuple(obj.q), p=tuple(obj.p),

@@ -7,8 +7,11 @@ pipeline, :100-246 matrix/scaling initialization; parameters.go chain
 layout), for dense (log_slots = logN-1) and sparse (repack) packings, with
 or without the sparse-secret encapsulation keys.  The pipeline programs
 against the evaluator interface, so the int32 fast path runs it unchanged
-(``fast/fboot.py``).  ``bootstrap_packed`` and ``bootstrap_sparse`` need
-ring packing and ring switching, which are not ported yet (ROADMAP A8).
+(``fast/fboot.py``).  ``bootstrap_packed`` and ``bootstrap_sparse``
+refresh several sparse ciphertexts through one pipeline pass, over ring
+packing (``rlwe/ring_packing.py``) and ring switching
+(``rlwe/ring_switch.py``) on the u64 path; the pipeline between them runs
+on whatever evaluator was injected.
 
 Key generation is split, as every key generator of the port is, into a
 sampling part on an explicit ``torch.Generator``
@@ -129,6 +132,19 @@ class Parameters:
         els |= set(rlwe_eval.galois_elements_for_trace(self.params, self.log_slots))
         els.discard(1)
         return sorted(els)
+
+
+def galois_elements_for_packed_bootstrap(params, k: int) -> list[int]:
+    """Galois elements for the pack and partial-expand trees of
+    :meth:`Evaluator.bootstrap_packed` (ring_packing_keys.go:143-180)."""
+    from matrix_fhe_tpu_torch.rlwe import ring_packing as rpk
+    log_k = k.bit_length() - 1
+    els = set(rpk.galois_elements_for_expand(params)[:log_k])
+    # pack stages i in [log_n - log_k, log_n)
+    for i in range(params.log_n - log_k, params.log_n):
+        els.add(params.nth_root - 1 if i == 0 else params.galois_element(1 << (i - 1)))
+    els.discard(1)
+    return sorted(els)
 
 
 @dataclasses.dataclass
@@ -327,6 +343,61 @@ class Evaluator:
         if len(cts) % 2:
             out.append(self.bootstrap(cts[-1]))
         return out
+
+    # -- packed sparse batch bootstrap (evaluator.go:880-1065) -------------
+    def bootstrap_packed(self, cts: list[Ciphertext],
+                         pack_gks: dict | None = None) -> list[Ciphertext]:
+        """Refresh k = 2^j sparse ciphertexts through ONE pipeline pass
+        (the equal-ring-degree analogue of PackAndSwitchN1ToN2 /
+        UnpackAndSwitch, bootstrapping/evaluator.go:880-1065).
+
+        Requirement: each input's payload is k-fold replicated over the
+        slots (e.g. ``np.tile(v, k)``), so its plaintext coefficients live
+        on multiples of k.  The k inputs are interleaved into one dense
+        ciphertext by coefficient packing (ring_packing.pack with the
+        garbage positions zeroed), bootstrapped once, and split back by a
+        partial expand tree.  ``pack_gks`` must hold the galois keys from
+        :func:`galois_elements_for_packed_bootstrap` (defaults to the
+        evaluator's key set)."""
+        from matrix_fhe_tpu_torch.rlwe import ring_packing as rpk
+
+        k = len(cts)
+        log_k = k.bit_length() - 1
+        if k < 2 or k != 1 << log_k:
+            raise ValueError("bootstrap_packed needs a power-of-two batch >= 2")
+        params = self.p.params
+        if any(c.level != cts[0].level or c.scale != cts[0].scale for c in cts):
+            raise ValueError("inputs must share level and scale")
+        gks = pack_gks if pack_gks is not None else self.gks
+
+        packed = rpk.pack(params, {j: c for j, c in enumerate(cts)},
+                          input_log_gap=log_k, zero_garbage_slots=True, gks=gks)
+        out = self.bootstrap(packed)
+        outs = rpk.expand(params, out, log_gap=0, gks=gks, num_stages=log_k)
+        return [outs[j] for j in range(k)]
+
+    def bootstrap_sparse(self, cts_small: list[Ciphertext], params_small,
+                         evk_up, evk_down, pack_gks: dict | None = None) -> list[Ciphertext]:
+        """True PackAndSwitchN1ToN2/UnpackAndSwitch (evaluator.go:880-1065):
+        refresh k = N2/N1 ciphertexts living at the SMALLER ring degree N1
+        through ONE degree-N2 pipeline pass.
+
+        Each small ciphertext ring-switches up (slot replication + key
+        switch, rlwe/ring_switch.py), producing exactly the k-fold
+        replicated payload ``bootstrap_packed`` interleaves; then the
+        packed bootstrap runs once and each output switches back down to
+        N1.  ``evk_up``/``evk_down`` are ring_switch.gen_ring_swap_keys
+        between ``params_small`` and this evaluator's parameters (shared
+        moduli chain)."""
+        from matrix_fhe_tpu_torch.rlwe import ring_switch as rs
+
+        params = self.p.params
+        k = params.n // params_small.n
+        if len(cts_small) != k:
+            raise ValueError(f"need N2/N1 = {k} inputs, got {len(cts_small)}")
+        big = [rs.switch_up(params_small, params, c, evk_up) for c in cts_small]
+        outs = self.bootstrap_packed(big, pack_gks)
+        return [rs.switch_down(params, params_small, o, evk_down) for o in outs]
 
     # -- iterative META-BTS (evaluator.go:345-493) -------------------------
     def evaluate(self, ct: Ciphertext, iterations: int = 1,

@@ -10,3 +10,4 @@ from matrix_fhe_tpu_torch.schemes.ckks.params import (  # noqa: F401
 from matrix_fhe_tpu_torch.schemes.ckks.encoder import Encoder  # noqa: F401
 from matrix_fhe_tpu_torch.schemes.ckks.evaluator import Evaluator  # noqa: F401
 from matrix_fhe_tpu_torch.schemes.ckks.precision import precision_stats  # noqa: F401
+from matrix_fhe_tpu_torch.schemes.ckks import bridge  # noqa: F401

@@ -12,7 +12,8 @@ from matrix_fhe_tpu_torch import carry, rlwe
 from matrix_fhe_tpu_torch.fast import fckks, fring, frns, wckks, wring, wrns
 from matrix_fhe_tpu_torch.ops import ntt_3n, ntt_cuda, ntt_w22, rings, rns_tools
 from matrix_fhe_tpu_torch.rlwe import params as rparams
-from matrix_fhe_tpu_torch.schemes import ckks, matrix_ckks
+from matrix_fhe_tpu_torch.rlwe import ring_packing
+from matrix_fhe_tpu_torch.schemes import bgv, ckks, matrix_ckks
 from matrix_fhe_tpu_torch.utils import primes
 
 N = 1 << 5
@@ -72,6 +73,14 @@ CONSTRUCTORS = {
     "ckks.new_parameters(conjugate_invariant)": lambda: ckks.new_parameters(
         ckks.CKKSParametersLiteral(logn=5, q=tuple(CI), ring_type=rings.CONJUGATE_INVARIANT)
         ).ring_q.moduli,
+    "bgv.new_parameters": lambda: bgv.new_parameters(bgv.BGVParametersLiteral(
+        logn=5, t=257, q=tuple(Q), p=tuple(P))).ring_t.moduli,
+    "bgv.Encoder": lambda: bgv.Encoder(bgv.new_parameters(bgv.BGVParametersLiteral(
+        logn=5, t=257, q=tuple(Q), p=tuple(P))))._perm_dev,
+    "ring_packing.RingPackingEvaluator": lambda: ring_packing.RingPackingEvaluator(
+        torch.Generator().manual_seed(0), lambda ln, device: rlwe.new_parameters(
+            rlwe.ParametersLiteral(logn=ln, q=tuple(Q), p=tuple(P)), device),
+        4, 5).x_pow2[5][0],
 }
 
 

@@ -39,7 +39,9 @@ _NAMES = {"poly": "circuits.polynomial", "bn": "utils.bignum", "ckks": "schemes.
           "rlwe_eval": "rlwe.evaluator", "dec": "rlwe.decryptor",
           "wide": "ops.wide", "wckks": "fast.wckks", "wrns": "fast.wrns", "weval": "fast.weval",
           "minimax": "circuits.ckks.minimax", "comparison": "circuits.ckks.comparison",
-          "inverse": "circuits.ckks.inverse", "rlwe_keys": "rlwe.keys", "encryptor": "rlwe.encryptor"}
+          "inverse": "circuits.ckks.inverse", "rlwe_keys": "rlwe.keys", "encryptor": "rlwe.encryptor",
+          "rs": "rlwe.ring_switch", "bridge": "schemes.ckks.bridge", "rpk": "rlwe.ring_packing",
+          "noise": "rlwe.noise", "bgv": "schemes.bgv", "bgv_circuits": "circuits.bgv_circuits"}
 
 
 def modules(root: str) -> SimpleNamespace:

@@ -11,6 +11,15 @@ JAX package on the CPU and prints the ``DIGESTS`` dict to paste in, the
 sha256 that ``digest`` (tests/test_torch_polynomial.py) gives of its
 output.  The circuits run eagerly, as the JAX package's own tests run them:
 minutes a module.
+
+The modules of ring switching, the bridge, ring packing, the packed
+bootstrap, noise and BGV / BFV (JAX on the CPU, context + cases):
+``test_torch_ring_switch`` ~35 s (29 + 4), ``test_torch_bridge`` ~45 s
+(38 + 5), ``test_torch_ring_packing`` ~55 s (35 + 18),
+``test_torch_noise`` ~25 s (21 + 2), ``test_torch_bgv`` ~100 s (44 + 54, of
+which the two Paterson-Stockmeyer polynomials 42 s) and
+``test_torch_boot_packed`` ~5.5 min (56 + 265 + 8: the packed case's first
+bootstrap compiles the JAX evaluator's graphs).
 """
 
 from __future__ import annotations
@@ -27,7 +36,9 @@ MODULES = ("test_torch_polynomial", "test_torch_mod1", "test_torch_lintrans",
            "test_torch_dft", "test_torch_flintrans", "test_torch_fdft",
            "test_torch_bootstrapping", "test_torch_fboot", "test_torch_wring",
            "test_torch_weval", "test_torch_wboot", "test_torch_comparison_inverse",
-           "test_torch_matrix_ckks", "test_torch_ci")
+           "test_torch_matrix_ckks", "test_torch_ci", "test_torch_ring_switch",
+           "test_torch_bridge", "test_torch_ring_packing", "test_torch_boot_packed",
+           "test_torch_noise", "test_torch_bgv")
 
 
 def main() -> None:
