@@ -10,8 +10,8 @@ two primes, 8 hoisted rotations):
    name and power limit as nvidia-smi reports them;
 2. build: compiles the kernels from this checkout, started together, one
    nvcc for each library: csrc/ntt.cu (B1-B3) for each N the path runs
-   (2^14, and 2^10 for phase 7), csrc/ntt64.cu (B4) for each N phase 10
-   checks, and csrc/ntt3n.cu (B5, one library for all N);
+   (2^14, and 2^10 for phase 7), csrc/ntt64.cu (B4) for each N phases 10,
+   17 and 21 run, and csrc/ntt3n.cu (B5, one library for all N);
 3. kernel vs plain: at every NTT shape of the step, the kernel's forward and
    inverse are bit-identical to the plain torch version run on CPU copies,
    inverse(forward(x)) == x, and both versions are timed on the card; the
@@ -233,13 +233,45 @@ Then B4 against its plain version at every shape phases 17-20 gave it
 (N = 2^12-2^15; on the CI ring with one kernel a call), and its loss table
 over them.
 
+Then RGSW, blind rotation and the multiparty protocols, on B4, run the same
+way (cold and warm pass, held to the same calls on the CPU with the same
+generator seeds, bit for bit):
+
+21. (a) on PN14QP438's chain at logN 14 (7 + 2 primes, scale 2^45): RGSW(3)
+    and RGSW(X^5) with the standard gadget and RGSW(3) with a P-less
+    base-two gadget (B = 12) on the same Q, each times a fresh encryption
+    of 8192 real slots (external_product), within tests/test_rgsw.py's 12
+    bits (min) against 3 v and the negacyclic shift, and
+    tests/test_base2.py:97's 10 bits (mean) against 3 v; (b) the blind
+    rotation at the reference example's ring size: ring logN 10 (a 27-bit
+    Q and a 31-bit P prime), LWE logN 9 (a 14-bit prime, ternary secret of
+    density 2/3), gen_evaluation_key in its two parts (512 RGSW + 11
+    galois keys), sign(x) over the 4 slots -0.75, -0.3, 0.4, 0.8, each
+    within 0.1 (tests/test_blindrot.py's bound); the time and B4's
+    launches a slot;
+22. tests/test_multiparty.py's protocols among 3 parties at logN 14: the
+    collective public key (15 bits), galois key for a rotation by one
+    (12), relinearization key in two rounds (10 on v^2), KeySwitch to a
+    fresh collective key (12) and PublicKeySwitch to a public key (10),
+    the 2-of-3 threshold sharing (parties 1 and 3 recombine the ideal
+    secret exactly), the refresh from level 0 to the top (10) and with
+    the slot transform z -> -z (8), on PN14QP438's chain; the BGV refresh on
+    phase 20's chain, exact mod T; each protocol's latency, the host time
+    of the Python-integer parts (masks, CRT, Lagrange coefficients) and the
+    peak device memory.
+Then B4 against its plain version at every shape phases 21-22 gave it
+(N = 2^9, 2^10, 2^14), its loss table over them, and its summed device
+time against the cold passes' wall time.  Before the kernels line, one
+"phase time: <n> <seconds>" line a phase (a phase's continuation, the B4
+checks after its group, counts to it; the builds to phase 2).
+
 Prints a JSON line of per-kernel results, one entry per kernel entry point:
 launches on its path (phase 4 for ntt_fwd/ntt_bwd, 6 for the chain, 7 for
 w22; counts zeroed just before each run and read just after; ntt_fwd/ntt_bwd
 also give launches_by_path: phase 4's, phase 8's cold pass, and phase 9's
 bootstrap and evaluate apart; ntt64_fwd/ntt64_bwd, kernel B4, phase 11's
 three PN14QP438 requests, with launches_by_path over phases 8, 9, 11, 12,
-13 and 17-20; ntt3n_fwd/ntt3n_bwd, kernel B5, phase 15's operations, with
+13 and 17-22; ntt3n_fwd/ntt3n_bwd, kernel B5, phase 15's operations, with
 launches_by_path over its keygen and each operation; ntt64_ci_fwd /
 ntt64_ci_bwd, B4 on the CI ring, phase 16's session, by stage, and phase
 18's CI side), max
@@ -263,6 +295,8 @@ from __future__ import annotations
 
 import hashlib
 import json
+import multiprocessing
+import pickle
 import statistics
 import subprocess
 import sys
@@ -421,8 +455,44 @@ PACKED_FLOOR = {"packed": 8, "sparse": 7}
 BGV_LITERAL = dict(logn=14, t=65537, logq=(55, 45, 45), logp=(61,))
 BGV_DIAGS = (0, 1, 2, 3)
 BGV_POLY = [5, 3, 0, 1, 7, 0, 2, 4]   # tests/test_bgv.py's degree 7
+# Phases 21-22: tests/test_rgsw.py's and tests/test_base2.py:97's products and
+# bounds on PN14QP438's chain at logN 14; the blind rotation at the reference
+# example's ring size ("reference uses LogN=10",
+# examples/rgsw_blind_rotation.py:34), its values (:57) and
+# tests/test_blindrot.py's bound; tests/test_multiparty.py's protocols among
+# its 3 parties, with its bounds (min L2 precision, bits).
+RGSW_BOUNDS = {"scalar": 12, "monomial": 12, "base2": 10}
+RGSW_MONOMIAL = 5
+RGSW_BASE_TWO = 12
+BR_RING = (10, 27, 31)     # logN, Q bits, P bits
+BR_LWE = (9, 14)           # logN, q bits
+BR_VALUES = (-0.75, -0.3, 0.4, 0.8)
+BR_BOUND = 0.1
+MP_PARTIES = 3
+MP_POINTS = (1, 2, 3)
+MP_ACTIVES = [1, 3]
+MP_THRESHOLD = 2
+MP_LOG_BOUND = 40
+MP_BOUNDS = {"public key": 15, "galois key": 12, "relinearization key": 10, "key switch": 12,
+             "public key switch": 10, "refresh": 10, "refresh with transform": 8}
 PHASE_NAMES = {"17": "ring switching and packing", "18": "bridge, the standard ring",
-               "19": "packed and sparse bootstrap", "20": "BGV and BFV"}
+               "19": "packed and sparse bootstrap", "20": "BGV and BFV",
+               "21a": "RGSW external products", "21b": "blind rotation",
+               "22": "multiparty protocols"}
+
+
+class PhaseClock:
+    """The wall time of each phase, s: the time between two marks goes to
+    the phase the second one names."""
+
+    def __init__(self):
+        self.times: dict = {}
+        self.last = time.perf_counter()
+
+    def done(self, n: int) -> None:
+        now = time.perf_counter()
+        self.times[n] = self.times.get(n, 0.0) + now - self.last
+        self.last = now
 
 
 def _digest(tensors) -> str:
@@ -1268,8 +1338,8 @@ def wide_circuits(dev, times: dict, keys=None) -> dict:
     return {"out": out, "keys": keys, "errs": errs, "ok": ok, "counts": counts}
 
 
-def wide_phases(dev, smi: str, rng, sms: int, int32_ops_per_s: float, b4_calls: dict,
-                b4_launches: dict) -> dict:
+def wide_phases(dev, smi: str, rng, sms: int, int32_ops_per_s: float, clock: PhaseClock,
+                b4_calls: dict, b4_launches: dict) -> dict:
     """Phases 10-13 (see the module's docstring); returns what the kernels
     line reports of B4, and B4's loss by shape over phases 8-13 (the calls
     and launches of phases 8 and 9 come in ``b4_calls`` / ``b4_launches``,
@@ -1305,6 +1375,8 @@ def wide_phases(dev, smi: str, rng, sms: int, int32_ops_per_s: float, b4_calls: 
           f"{min(v['registers'] for v in b4_regs.values())}-"
           f"{max(v['registers'] for v in b4_regs.values())}, spills {spills or 'none'}")
 
+    clock.done(10)
+
     # -- 11. the wide step at bench.py's shapes ------------------------------------------
     b4_seen: dict = {}
     steps, step_shapes = {}, {}
@@ -1329,6 +1401,8 @@ def wide_phases(dev, smi: str, rng, sms: int, int32_ops_per_s: float, b4_calls: 
         print(f"phase wide step: {name} B4 launches a request {st['counts']}; digests equal the "
               f"JAX package's; every request equals the same step on the CPU (plain NTT; "
               f"{st['cpu_s']:.1f} s for the three)")
+
+    clock.done(11)
 
     # -- 12. one wide bootstrap at logN 14 -------------------------------------------------
     torch.cuda.synchronize()
@@ -1396,6 +1470,8 @@ def wide_phases(dev, smi: str, rng, sms: int, int32_ops_per_s: float, b4_calls: 
     assert floor_met, "wide bootstrap: decoded precision below the JAX package's criterion"
     del wwarm, wkeys2
 
+    clock.done(12)
+
     # -- 13. the comparison and inverse circuits on the wide evaluator ----------------------
     ctimes: dict = {}
     circ = b4_shapes(lambda: wide_circuits(dev, ctimes), b4_seen, b4_launches)
@@ -1412,6 +1488,8 @@ def wide_phases(dev, smi: str, rng, sms: int, int32_ops_per_s: float, b4_calls: 
     print(f"phase circuits: sign polynomial {ctimes['sign polynomial (host)']:.1f} ms on the host; "
           f"CPU reference (the card's keys, the plain NTT) "
           f"{sum(v for k, v in cpu_ctimes.items() if k in circ['out']) / 1e3:.1f} s")
+
+    clock.done(13)
 
     # -- 10, continued: B4 at every shape phases 11-13 gave it --------------------------------
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
@@ -1459,6 +1537,8 @@ def wide_phases(dev, smi: str, rng, sms: int, int32_ops_per_s: float, b4_calls: 
         "wide bootstrap setup (phase 12: keygen, make_wide_bootstrapper)":
             total(b4_wkeys, wboot["counts"]["make_wide_bootstrapper"]),
         "circuits (phase 13)": total(*circ["counts"].values())}
+    clock.done(10)
+
     # -- 13, continued: B4's loss by shape over phases 8-13 ---------------------------------
     loss = b4_loss({**b4_calls, **b4_seen}, b4_launches, dev, rng, int32_ops_per_s, smi,
                    "phases 8-13")
@@ -1737,7 +1817,7 @@ def ci_session(dev, times: dict, keys=None) -> dict:
             "prec": prec, "counts": counts}
 
 
-def matrix_phases(dev, smi: str, rng, int32_ops_per_s: float) -> dict:
+def matrix_phases(dev, smi: str, rng, int32_ops_per_s: float, clock: PhaseClock) -> dict:
     """Phases 14-16 (see the module's docstring); returns what the kernels
     line reports of B5 and of B4 on the CI ring."""
     from matrix_fhe_tpu_torch.ops import ntt3n_cuda, ntt64_cuda, ntt_3n, rings
@@ -1786,6 +1866,8 @@ def matrix_phases(dev, smi: str, rng, int32_ops_per_s: float) -> dict:
                   f"counts the {MULS_SHOUP} multiply-adds of each Shoup product); "
                   f"{regs[name]['registers']} registers, {regs[name]['spill_bytes']} spill bytes")
 
+    clock.done(14)
+
     # -- 15. Matrix-CKKS at N = 12288 ---------------------------------------------------
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
@@ -1832,6 +1914,8 @@ def matrix_phases(dev, smi: str, rng, int32_ops_per_s: float) -> dict:
           "every operation, limb for limb and decoded; CPU reference "
           + ", ".join(f"{k} {ctimes[k] / 1e3:.2f} s" for k in ops))
 
+    clock.done(15)
+
     # -- 14, continued: B5 at every shape phase 15 gave it -------------------------------
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     shape_rows = check_b5_shapes(seen, dev, rng)
@@ -1863,6 +1947,8 @@ def matrix_phases(dev, smi: str, rng, int32_ops_per_s: float) -> dict:
               f"{stats[d]['plain_ms']:.4f} ms, bound {stats[d]['bound_ms']:.4f} ms by "
               f"{stats[d]['bound_by']} | {smi}")
 
+    clock.done(14)
+
     # -- 16. CKKS on the CI ring at logN 14 ----------------------------------------------
     from tools.port_precision_floor import CI_LITERAL
     citimes: dict = {}
@@ -1892,6 +1978,8 @@ def matrix_phases(dev, smi: str, rng, int32_ops_per_s: float) -> dict:
         assert np.array_equal(ci["dec"][name], cpu_ci["dec"][name]), f"CI {name}: decoded"
     print("phase ci: card == CPU (the card's keys, the plain NTT) for both encryptions, the "
           "product and the rotation, limb for limb and decoded")
+
+    clock.done(16)
 
     # -- 16, continued: B4 on the CI ring at every shape phase 16 gave it -----------------
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
@@ -2293,7 +2381,8 @@ def bgv_session(dev, times: dict, keys=None) -> dict:
             "model": _bgv_model(v1, v2, diags)}
 
 
-def ring_phases(dev, smi: str, rng, int32_ops_per_s: float, wide: dict, ci: dict) -> dict:
+def ring_phases(dev, smi: str, rng, int32_ops_per_s: float, clock: PhaseClock, wide: dict,
+                ci: dict) -> dict:
     """Phases 17-20 (see the module's docstring); returns what the kernels
     line reports of B4 on these paths and B4's loss by shape over them."""
     from matrix_fhe_tpu_torch.circuits.ckks import bootstrapping as btp
@@ -2361,6 +2450,8 @@ def ring_phases(dev, smi: str, rng, int32_ops_per_s: float, wide: dict, ci: dict
     print(f"phase ring switch: B4 launches {counts['17']}")
     del s
 
+    clock.done(17)
+
     # -- 18. the bridge, standard logN 15 <-> CI logN 14 ---------------------------------
     b, cold_t, warm_t, warm = cold_warm("18", lambda t: bridge_session(dev, t, ci), ci_ring=True)
     for k in ("keys", "ct", "ct_ci", "sq", "back"):
@@ -2386,6 +2477,8 @@ def ring_phases(dev, smi: str, rng, int32_ops_per_s: float, wide: dict, ci: dict
           f"complex_to_real and real_to_complex; B4 launches (standard ring) {counts['18']}, "
           f"on the CI ring {sum(ci_launches.values())}")
     del b
+
+    clock.done(18)
 
     # -- 19. the packed and sparse bootstrap at logN 14 ----------------------------------
     pb, cold_t, warm_t, warm = cold_warm("19", lambda t: packed_boot_session(dev, t, wide))
@@ -2432,6 +2525,8 @@ def ring_phases(dev, smi: str, rng, int32_ops_per_s: float, wide: dict, ci: dict
         del evk.gks[g]
     del pb
 
+    clock.done(19)
+
     # -- 20. BGV and BFV at logN 14, T = 65537 ---------------------------------------------
     bg, cold_t, warm_t, warm = cold_warm("20", lambda t: bgv_session(dev, t))
     for k in ("keys", "cts", "outs", "dec"):
@@ -2458,6 +2553,8 @@ def ring_phases(dev, smi: str, rng, int32_ops_per_s: float, wide: dict, ci: dict
           f"every result, limb for limb and decoded; B4 launches {counts['20']}")
     del bg, cbg
 
+    clock.done(20)
+
     # -- B4 at every shape phases 17-20 gave it ---------------------------------------------
     shape_rows = check_b4_shapes(seen, dev, rng)
     for d, shape, c, err_, _ in shape_rows:
@@ -2481,32 +2578,553 @@ def ring_phases(dev, smi: str, rng, int32_ops_per_s: float, wide: dict, ci: dict
                             for d in ("fwd", "bwd")}}
 
 
+# -- phases 21-22: RGSW and blind rotation, the multiparty protocols ------------------------
+
+def _pn14_params(device, logp=True):
+    """A CKKS parameter set on PN14QP438's chain at logN 14, scale 2^45 (with
+    its two P primes, or P-less)."""
+    from matrix_fhe_tpu_torch.fast import wckks
+    from matrix_fhe_tpu_torch.schemes import ckks
+    return ckks.new_parameters(ckks.CKKSParametersLiteral(
+        logn=LOGN, q=wckks.PN14QP438_Q, p=wckks.PN14QP438_P if logp else (),
+        log_default_scale=SESSION_LOG_SCALE), device=device)
+
+
+def rgsw_session(dev, times: dict) -> dict:
+    """Phase 21 (a) on ``dev``: RGSW(3) and RGSW(X^5) with the standard
+    gadget and RGSW(3) with a P-less base-two gadget (B = 12) on the same Q,
+    each times a fresh encryption of 8192 real slots; decrypted and decoded."""
+    from matrix_fhe_tpu_torch.ops import automorphism as am
+    from matrix_fhe_tpu_torch.rgsw import rgsw
+    from matrix_fhe_tpu_torch.rlwe import decryptor, encryptor
+    from matrix_fhe_tpu_torch.rlwe import keys as K
+    from matrix_fhe_tpu_torch.rlwe.elements import Plaintext
+    from matrix_fhe_tpu_torch.schemes import ckks
+    params, pless = _pn14_params(dev), _pn14_params(dev, logp=False)
+    rng = np.random.default_rng(SEED)
+    v = {k: rng.uniform(-1, 1, params.max_slots) + 0j for k in RGSW_BOUNDS}
+    enc, enc2 = ckks.Encoder(params), ckks.Encoder(pless)
+    sk = _timed(times, "keygen secret x2", dev, lambda: (
+        K.gen_secret_key(_gen(2101), params), K.gen_secret_key(_gen(2102), pless)))
+    cts = _timed(times, "encode + encrypt x3", dev, lambda: {
+        "scalar": encryptor.encrypt(_gen(2103), params, sk[0], enc.encode(v["scalar"])),
+        "monomial": encryptor.encrypt(_gen(2104), params, sk[0], enc.encode(v["monomial"])),
+        "base2": encryptor.encrypt(_gen(2105), pless, sk[1], enc2.encode(v["base2"]))})
+    rq = params.ring_q
+    mono = torch.zeros((len(params.q), params.n), dtype=torch.int64, device=dev)
+    mono[:, RGSW_MONOMIAL] = 1
+    b2 = K.EvaluationKeyParameters(level_p=-1, base_two_decomposition=RGSW_BASE_TWO)
+    rg = {"scalar": _timed(times, "RGSW(3) encrypt", dev, lambda: rgsw.encrypt_plaintext(
+              _gen(2106), params, sk[0], 3)),
+          "monomial": _timed(times, f"RGSW(X^{RGSW_MONOMIAL}) encrypt", dev, lambda: rgsw.encrypt(
+              _gen(2107), params, sk[0], rq.mform(rq.ntt(mono)))),
+          "base2": _timed(times, f"RGSW(3) base-two B={RGSW_BASE_TWO} encrypt", dev,
+                          lambda: rgsw.encrypt_plaintext(_gen(2108), pless, sk[1], 3, b2))}
+    # each case's (parameters, encoder, secret)
+    case = {"scalar": (params, enc, sk[0]), "monomial": (params, enc, sk[0]),
+            "base2": (pless, enc2, sk[1])}
+    outs = {k: _timed(times, f"external product {k}", dev, lambda k=k: rgsw.external_product(
+        case[k][0], cts[k], rg[k])) for k in RGSW_BOUNDS}
+    dec = _timed(times, "decrypt + decode x3", dev, lambda: {
+        k: e.decode(decryptor.decrypt(p, key, outs[k])) for k, (p, e, key) in case.items()})
+    ptd = decryptor.decrypt(params, sk[0], cts["monomial"])
+    shifted = am.mult_by_monomial(rq, rq.intt(ptd.value), RGSW_MONOMIAL)
+    want = {"scalar": 3 * v["scalar"], "base2": 3 * v["base2"],
+            "monomial": enc.decode(Plaintext(value=rq.ntt(shifted), metadata=ptd.metadata))}
+    return {"params": params, "sk": sk, "cts": cts, "rg": rg, "outs": outs, "dec": dec,
+            "want": want}
+
+
+def _blindrot_params(device):
+    """Phase 21 (b)'s rings: the blind rotation's at logN 10 (a 27-bit Q and a
+    31-bit P prime, drawn as tests/test_blindrot.py draws them), the LWE
+    ring at logN 9 (a 14-bit prime, the default ternary secret)."""
+    from matrix_fhe_tpu_torch import rlwe
+    from matrix_fhe_tpu_torch.utils import primes as pr
+    (logn, qb, pb), (logn_lwe, qb_lwe) = BR_RING, BR_LWE
+
+    def prime(bits, logn_):
+        return tuple(pr.NTTFriendlyPrimesGenerator(bits, 2 << logn_).next_alternating_primes(1))
+    return (rlwe.new_parameters(rlwe.ParametersLiteral(logn=logn, q=prime(qb, logn),
+                                                       p=prime(pb, logn)), device),
+            rlwe.new_parameters(rlwe.ParametersLiteral(logn=logn_lwe, q=prime(qb_lwe, logn_lwe)),
+                                device))
+
+
+def _sign(x: float) -> float:
+    return 1.0 if x > 0 else (-1.0 if x < 0 else 0.0)
+
+
+def blindrot_session(dev, times: dict) -> dict:
+    """Phase 21 (b) on ``dev``: the keys (gen_evaluation_key in its two parts,
+    the draws and the deterministic part), the sign test polynomial, an
+    LWE encryption of BR_VALUES at scale q / 4 in its first coefficients,
+    evaluate over the 4 slots, and each slot decrypted."""
+    from matrix_fhe_tpu_torch.ops import ntt64_cuda
+    from matrix_fhe_tpu_torch.rgsw import blindrot
+    from matrix_fhe_tpu_torch.rlwe import decryptor, encryptor
+    from matrix_fhe_tpu_torch.rlwe import keys as K
+    from matrix_fhe_tpu_torch.rlwe.elements import MetaData, Plaintext
+    from matrix_fhe_tpu_torch.schemes.ckks.encoder import crt_reconstruct_centered
+    pb, pl = _blindrot_params(dev)
+    sk_br, sk_lwe = _timed(times, "keygen secrets", dev, lambda: (
+        K.gen_secret_key(_gen(2111), pb), K.gen_secret_key(_gen(2112), pl)))
+    samples = _timed(times, f"gen_evaluation_key draws ({pl.n} RGSW + "
+                     f"{len(blindrot.galois_elements(pb))} galois)", dev,
+                     lambda: blindrot.sample_evaluation_key(_gen(2113), pb, pl))
+    brk = _timed(times, "gen_evaluation_key deterministic part", dev,
+                 lambda: blindrot.evaluation_key_from_samples(pb, sk_br, pl, sk_lwe, samples))
+    del samples
+    scale_br = pb.q[0] / 4.0
+    test_poly = _timed(times, "init_test_polynomial", dev, lambda: blindrot.init_test_polynomial(
+        _sign, scale_br, pb, -1, 1))
+    coeffs = np.zeros((1, pl.n), dtype=np.int64)
+    for i, x in enumerate(BR_VALUES):
+        c = int(round(abs(x) * pl.q[0] / 4.0))
+        coeffs[0, i] = (pl.q[0] - c) % pl.q[0] if x < 0 else c
+    ct = _timed(times, "LWE encrypt", dev, lambda: encryptor.encrypt(
+        _gen(2114), pl, sk_lwe, Plaintext(value=pl.ring_q.ntt(torch.from_numpy(coeffs).to(dev)),
+                                          metadata=MetaData(is_ntt=True))))
+    ev = blindrot.Evaluator(pb, pl)
+    slots = range(len(BR_VALUES))
+    before = (ntt64_cuda.fwd_launches, ntt64_cuda.bwd_launches)
+    out = _timed(times, f"evaluate, {len(BR_VALUES)} slots", dev, lambda: ev.evaluate(
+        ct, {i: test_poly for i in slots}, brk))
+    launches = {"fwd": ntt64_cuda.fwd_launches - before[0],
+                "bwd": ntt64_cuda.bwd_launches - before[1]}
+
+    def decrypt(i):
+        c = pb.ring_q.intt(decryptor.decrypt(pb, sk_br, out[i]).value)
+        return float(crt_reconstruct_centered(c.cpu().numpy(), pb.q)[0]) / scale_br
+    got = _timed(times, "decrypt x4", dev, lambda: [decrypt(i) for i in slots])
+    _, masks = ev.lwe_samples(ct, list(slots))
+    steps = [ev.schedule(masks[i]) for i in slots]
+    return {"params": (pb, pl), "keys": (sk_br, sk_lwe, brk), "test_poly": test_poly, "ct": ct,
+            "out": out, "got": got, "launches": launches,
+            "steps": [{k: sum(s[0] == k for s in st) for k in ("product", "auto")}
+                      for st in steps]}
+
+
+def _ideal_secret(params, sks):
+    from matrix_fhe_tpu_torch.rlwe import keys as K
+    rq, rp = params.ring_q, params.ring_p
+    q, p = sks[0].value.q, sks[0].value.p
+    for s in sks[1:]:
+        q, p = rq.add(q, s.value.q), rp.add(p, s.value.p)
+    return K.SecretKey(value=K.QPPoly(q=q, p=p))
+
+
+def _aggregate(agg, params, shares):
+    out = shares[0]
+    for s in shares[1:]:
+        out = agg(params, out, s)
+    return out
+
+
+def multiparty_session(dev, times: dict) -> dict:
+    """Phase 22 on ``dev``: tests/test_multiparty.py's protocols among 3
+    parties at logN 14 (PN14QP438's chain for CKKS, phase 20's for BGV), each
+    finalized and decrypted; every party draws from its own CPU generator,
+    the common reference strings from theirs."""
+    from matrix_fhe_tpu_torch import multiparty as mp
+    from matrix_fhe_tpu_torch.multiparty import mpbgv, mpckks
+    from matrix_fhe_tpu_torch.rlwe import decryptor, encryptor
+    from matrix_fhe_tpu_torch.rlwe import evaluator as rlwe_eval
+    from matrix_fhe_tpu_torch.rlwe import keys as K
+    from matrix_fhe_tpu_torch.schemes import bgv, ckks
+    params = _pn14_params(dev)
+    enc = ckks.Encoder(params)
+    n_p = range(MP_PARTIES)
+    rng = np.random.default_rng(SEED)
+    # complex slots, real ones where tests/test_multiparty.py draws real ones
+    v = {k: rng.uniform(-1, 1, params.max_slots) + 1j * (
+        0 if k in ("relinearization key", "key switch") else rng.uniform(-1, 1, params.max_slots))
+        for k in MP_BOUNDS if k != "public key switch"}
+    sks = _timed(times, "keygen secrets x3 (+3 out)", dev, lambda: [
+        K.gen_secret_key(_gen(2201 + i), params) for i in range(2 * MP_PARTIES)])
+    sks, sk_outs = sks[:MP_PARTIES], sks[MP_PARTIES:]
+    ideal, ideal_out = _ideal_secret(params, sks), _ideal_secret(params, sk_outs)
+    out, dec = {}, {}
+
+    def run(name, fn):
+        out[name] = _timed(times, name, dev, fn)
+
+    def cpk(site):
+        crp = mp.PublicKeyGen.sample_crp(_gen(site), params)
+        shares = [mp.PublicKeyGen.gen_share(_gen(site + 1 + i), params, sks[i], crp) for i in n_p]
+        pk = mp.PublicKeyGen.finalize(params, _aggregate(mp.PublicKeyGen.aggregate, params,
+                                                         shares), crp)
+        return shares, pk
+
+    def encrypt(site, key, vals, level=None):
+        return encryptor.encrypt(_gen(site), params, key, enc.encode(vals, level=level))
+
+    run("public key", lambda: cpk(2210))
+    cts = {"public key": encrypt(2215, out["public key"][1], v["public key"])}
+    gal_el = params.galois_element(1)
+
+    def galois():
+        crp = mp.GaloisKeyGen.sample_crp(_gen(2220), params)
+        shares = [mp.GaloisKeyGen.gen_share(_gen(2221 + i), params, sks[i], gal_el, crp)
+                  for i in n_p]
+        return shares, mp.GaloisKeyGen.finalize(
+            params, _aggregate(mp.GaloisKeyGen.aggregate, params, shares), crp, gal_el)
+    run("galois key", galois)
+    cts["galois key"] = encrypt(2225, ideal, v["galois key"])
+    cts["galois key rotated"] = rlwe_eval.automorphism(params, cts["galois key"],
+                                                       out["galois key"][1])
+
+    def relin():
+        crp = mp.RelinKeyGen.sample_crp(_gen(2230), params)
+        r1 = [mp.RelinKeyGen.gen_share_round1(_gen(2231 + i), params, sks[i], crp) for i in n_p]
+        agg1 = _aggregate(mp.RelinKeyGen.aggregate_round1, params, [s for _, s in r1])
+        r2 = [mp.RelinKeyGen.gen_share_round2(_gen(2235 + i), params, r1[i][0], sks[i], agg1)
+              for i in n_p]
+        return r1, r2, mp.RelinKeyGen.finalize(
+            params, agg1, _aggregate(mp.RelinKeyGen.aggregate_round2, params, r2))
+    run("relinearization key", relin)
+    ev = ckks.Evaluator(params, rlk=out["relinearization key"][2])
+    cts["relinearization key"] = encrypt(2239, ideal, v["relinearization key"])
+    cts["relinearization key product"] = ev.rescale(ev.mul_relin(
+        cts["relinearization key"], cts["relinearization key"]))
+    ct = cts["key switch"] = encrypt(2240, ideal, v["key switch"])
+    run("key switch", lambda: mp.KeySwitch.finalize(params, ct, _aggregate(
+        mp.KeySwitch.aggregate, params, [mp.KeySwitch.gen_share(_gen(2245 + i), params, sks[i],
+                                                                sk_outs[i], ct) for i in n_p])))
+    pk_out = cpk(2250)[1]
+    run("public key switch", lambda: mp.PublicKeySwitch.finalize(params, ct, _aggregate(
+        mp.PublicKeySwitch.aggregate, params, [mp.PublicKeySwitch.gen_share(
+            _gen(2255 + i), params, sks[i], pk_out, ct) for i in n_p])))
+
+    def threshold():
+        received = {p: [] for p in MP_POINTS}
+        for i in n_p:
+            spoly = mp.Thresholdizer.gen_shamir_polynomial(_gen(2260 + i), params,
+                                                           MP_THRESHOLD, sks[i])
+            for p in MP_POINTS:
+                received[p].append(mp.Thresholdizer.gen_shamir_secret_share(params, p, spoly))
+        own = {p: _aggregate(mp.Thresholdizer.aggregate, params, received[p])
+               for p in MP_POINTS}
+        return [mp.Combiner(params, p, MP_POINTS, MP_THRESHOLD).gen_additive_share(
+            MP_ACTIVES, own[p]) for p in MP_ACTIVES]
+    run("threshold 2-of-3", threshold)
+
+    def refresh(name, site, seed0, transform=None):
+        ct = cts[name] = encrypt(site, ideal, v[name], level=0)
+        crs_poly = mpckks.MaskedTransform.sample_crp(_gen(site + 1), params, params.max_level)
+        shares = [mpckks.MaskedTransform.gen_share(
+            _gen(site + 2 + i), seed0 + i, params, sks[i], sks[i], MP_LOG_BOUND, ct, crs_poly,
+            params.default_scale, transform=transform) for i in n_p]
+        agg = _aggregate(mpckks.MaskedTransform.aggregate, params, shares)
+        return shares, mpckks.MaskedTransform.transform(params, ct, crs_poly, agg,
+                                                        params.default_scale, transform=transform)
+    run("refresh", lambda: refresh("refresh", 2270, 9000))
+    run("refresh with transform", lambda: refresh("refresh with transform", 2280, 9900,
+                                                  lambda z: -z))
+    bparams = bgv.new_parameters(bgv.BGVParametersLiteral(**BGV_LITERAL), device=dev)
+    benc = bgv.Encoder(bparams)
+    bsks = [K.gen_secret_key(_gen(2290 + i), bparams) for i in n_p]
+    bideal = _ideal_secret(bparams, bsks)
+    bv = rng.integers(0, bparams.t, bparams.n, dtype=np.int64)
+    bct = encryptor.encrypt(_gen(2294), bparams, bideal, benc.encode(bv, level=0))
+
+    def bgv_refresh():
+        crs_poly = mpbgv.Refresh.sample_crp(_gen(2295), bparams, bparams.max_level)
+        shares = [mpbgv.Refresh.gen_share(_gen(2296 + i), bparams, bsks[i], bct, crs_poly)
+                  for i in n_p]
+        return shares, mpbgv.Refresh.finalize(bparams, bct, _aggregate(
+            mpbgv.Refresh.aggregate, bparams, shares), crs_poly)
+    run("BGV refresh", bgv_refresh)
+
+    def decode(sk, ct):
+        return enc.decode(decryptor.decrypt(params, sk, ct))
+    dec = _timed(times, "decrypt + decode x7", dev, lambda: {
+        "public key": decode(ideal, cts["public key"]),
+        "galois key": decode(ideal, cts["galois key rotated"]),
+        "relinearization key": decode(ideal, cts["relinearization key product"]),
+        "key switch": decode(ideal_out, out["key switch"]),
+        "public key switch": decode(ideal, out["public key switch"]),
+        "refresh": decode(ideal, out["refresh"][1]),
+        "refresh with transform": decode(ideal, out["refresh with transform"][1]),
+        "BGV refresh": benc.decode(decryptor.decrypt(bparams, bideal, out["BGV refresh"][1]))})
+    want = {**v, "galois key": np.roll(v["galois key"], -1),
+            "relinearization key": v["relinearization key"] ** 2,
+            "public key switch": v["key switch"],
+            "refresh with transform": -v["refresh with transform"]}
+    return {"params": params, "bparams": bparams, "keys": (sks, sk_outs, bsks), "ideal": ideal,
+            "cts": cts, "bct": bct, "out": out, "dec": dec, "want": want, "bv": bv}
+
+
+def _python_int_timers():
+    """Wrap the multiparty modules' Python-integer parts (the masks, the CRT
+    to and from positional integers, the transform and scaling of the masked
+    values, the Lagrange coefficients) to sum their host time, in ms; returns
+    (the sums, a function that unwraps them)."""
+    from matrix_fhe_tpu_torch.multiparty import mpckks, threshold
+    sums: dict = {}
+    saved = []
+
+    def wrap(owner, name, label):
+        fn = getattr(owner, name)
+
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                sums[label] = sums.get(label, 0.0) + (time.perf_counter() - t0) * 1e3
+        saved.append((owner, name, fn))
+        setattr(owner, name, timed)
+    wrap(mpckks, "sample_mask", "sample_mask")
+    wrap(mpckks, "poly_to_bigint_centered", "poly_to_bigint_centered")
+    wrap(mpckks, "set_coefficients_bigint", "set_coefficients_bigint (with its move and NTT)")
+    wrap(mpckks, "_apply_transform_and_scale", "transform and scale of the masked values")
+    wrap(threshold.Combiner, "__init__", "Combiner: Lagrange coefficients")
+
+    def restore():
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+    return sums, restore
+
+
+# each CPU reference session of phases 21-22 and the outputs the card's are held to
+CPU_REFERENCES = {"rgsw": ("sk", "cts", "rg", "outs", "dec"),
+                  "blindrot": ("keys", "test_poly", "ct", "out", "got"),
+                  "multiparty": ("keys", "cts", "bct", "out", "dec")}
+
+
+def _cpu_reference(name: str) -> bytes:
+    """Session ``name`` of phases 21-22 on the CPU (the same calls, the same
+    generator seeds as on the card), pickled with its time in s.  Each
+    session makes its own inputs from its seeds, so it runs in a worker
+    process beside the card's phases and is read when its phase compares."""
+    torch.set_num_threads(2)  # the other cores stay with the card's phases
+    fn = {"rgsw": rgsw_session, "blindrot": blindrot_session,
+          "multiparty": multiparty_session}[name]
+    t0 = time.perf_counter()
+    out = fn(torch.device("cpu"), {})
+    return pickle.dumps({**{k: out[k] for k in CPU_REFERENCES[name]},
+                         "seconds": time.perf_counter() - t0})
+
+
+def start_cpu_references():
+    """One spawned worker process running phases 21-22's CPU references in
+    turn: (the pool, {name: its pending result}).  The caller terminates the
+    pool when done."""
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    return pool, {name: pool.apply_async(_cpu_reference, (name,)) for name in CPU_REFERENCES}
+
+
+def rgsw_multiparty_phases(dev, smi: str, rng, int32_ops_per_s: float, clock: PhaseClock,
+                           refs: dict) -> dict:
+    """Phases 21-22 (see the module's docstring), held to the CPU references
+    ``refs`` (``start_cpu_references``); returns what the kernels line
+    reports of B4 on these paths and B4's loss by shape over them."""
+    from matrix_fhe_tpu_torch.schemes import ckks
+    seen: dict = {}       # B4's calls by (direction, shape, moduli), phases 21-22
+    launches: dict = {}   # and its launches there (cold passes), by phase
+    counts: dict = {}
+    walls: dict = {}      # the cold passes' wall times, s
+
+    def cold_warm(phase, fn):
+        """fn(times) in a cold pass (B4's calls recorded and its launches
+        counted) and a warm one with the same seeds: (cold outputs, cold
+        times, warm times, warm outputs)."""
+        cold_t, warm_t = {}, {}
+        t0 = time.perf_counter()
+        out, counts[phase] = _b4_counted(dev, lambda: b4_shapes(
+            lambda: fn(cold_t), seen, launches.setdefault(phase, {})))
+        walls[phase] = time.perf_counter() - t0
+        return out, cold_t, warm_t, fn(warm_t)
+
+    def report(tag, cold_t, warm_t):
+        for name, ms in cold_t.items():
+            print(f"phase {tag}: {name:48s} cold {ms:10.3f} ms, warm {warm_t[name]:10.3f} ms"
+                  f" | {smi}")
+
+    # -- 21 (a). RGSW external products at logN 14 ------------------------------------------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    r, cold_t, warm_t, warm = cold_warm("21a", lambda t: rgsw_session(dev, t))
+    for k in ("sk", "cts", "rg", "outs", "dec"):
+        assert _same(r[k], warm[k]), f"phase 21 {k}: warm pass != cold pass"
+    del warm
+    p = r["params"]
+    print(f"phase rgsw: PN14QP438's chain at logN {p.log_n} ({len(p.q)} + {len(p.p)} primes, "
+          f"scale 2^{SESSION_LOG_SCALE}); RGSW rows: standard gadget "
+          f"{r['rg']['scalar'].g0.num_digits}, base-two B={RGSW_BASE_TWO} P-less "
+          f"{r['rg']['base2'].g0.num_digits}")
+    report("rgsw", cold_t, warm_t)
+    for k, floor in RGSW_BOUNDS.items():
+        st = ckks.precision_stats(r["want"][k], r["dec"][k])
+        mean_bits = -np.log2(np.mean(np.abs(r["dec"][k] - r["want"][k])) + 1e-30)
+        print(f"phase rgsw: external product {k:8s} min {st.min_precision:.4f} bits, mean "
+              f"|error| {mean_bits:.4f} bits (floor {floor}: "
+              f"{'tests/test_base2.py:97' if k == 'base2' else 'tests/test_rgsw.py'}) | {smi}")
+        # tests/test_rgsw.py holds the min L2 precision, tests/test_base2.py:97 the mean error
+        if k == "base2":
+            assert mean_bits > floor, f"phase 21 {k}: below the floor"
+        else:
+            assert st.min_precision >= floor, f"phase 21 {k}: below the floor"
+    cr = pickle.loads(refs["rgsw"].get())
+    for k in ("sk", "cts", "rg", "outs"):
+        assert _same(r[k], cr[k]), f"phase 21 {k}: card != CPU"
+    for k in RGSW_BOUNDS:
+        assert np.array_equal(r["dec"][k], cr["dec"][k]), f"phase 21 {k}: decoded, card != CPU"
+    print(f"phase rgsw: card == CPU (the same calls, the same generator seeds, the plain NTT) "
+          f"for the secrets, the 3 encryptions, the 3 RGSW ciphertexts, the 3 products and "
+          f"their decodings (CPU reference {cr['seconds']:.2f} s, in a worker process); B4 "
+          f"launches {counts['21a']}")
+    del r, cr
+
+    # -- 21 (b). blind rotation, ring logN 10 over LWE logN 9 --------------------------------
+    b, cold_t, warm_t, warm = cold_warm("21b", lambda t: blindrot_session(dev, t))
+    for k in ("keys", "test_poly", "ct", "out", "got"):
+        assert _same(b[k], warm[k]), f"phase 21 blind rotation {k}: warm pass != cold pass"
+    del warm
+    pb, pl = b["params"]
+    print(f"phase blindrot: ring logN {pb.log_n} (Q {pb.q[0]}, {pb.q[0].bit_length()} bits; P "
+          f"{pb.p[0]}, {pb.p[0].bit_length()} bits), LWE logN {pl.log_n} (q {pl.q[0]}, "
+          f"{pl.q[0].bit_length()} bits, ternary secret, density 2/3); {len(b['keys'][2].brks)} "
+          f"RGSW keys, {len(b['keys'][2].gks)} galois keys")
+    report("blindrot", cold_t, warm_t)
+    slots = len(BR_VALUES)
+    evaluate = f"evaluate, {slots} slots"
+    print(f"phase blindrot: a slot: cold {cold_t[evaluate] / slots:.3f} ms, warm "
+          f"{warm_t[evaluate] / slots:.3f} ms; B4 launches a slot "
+          f"{ {d: n / slots for d, n in b['launches'].items()} } (evaluate's "
+          f"{b['launches']} over {slots} slots) | {smi}")
+    for i, (x, got, st) in enumerate(zip(BR_VALUES, b["got"], b["steps"])):
+        err = abs(got - _sign(x))
+        print(f"phase blindrot: slot {i}: sign({x:+.2f}) = {got:+.6f}, |error| {err:.6f} (bound "
+              f"{BR_BOUND}: tests/test_blindrot.py); {st['product']} external products, "
+              f"{st['auto']} automorphisms")
+        assert err < BR_BOUND, f"phase 21 blind rotation slot {i}: |error| {err}"
+    cb = pickle.loads(refs["blindrot"].get())
+    for k in ("keys", "test_poly", "ct", "out", "got"):
+        assert _same(b[k], cb[k]), f"phase 21 blind rotation {k}: card != CPU"
+    print(f"phase blindrot: card == CPU (the same calls, the same generator seeds, the plain "
+          f"NTT) for the keys (512 RGSW, 11 galois), the test polynomial, the LWE ciphertext, "
+          f"the 4 blind-rotated slots and their decryptions (CPU reference "
+          f"{cb['seconds']:.2f} s, in a worker process); B4 launches {counts['21b']}")
+    del b, cb
+    peak = torch.cuda.max_memory_allocated()
+    print(f"phase rgsw: peak device memory {(peak - held) / 2**20:.1f} MiB above the "
+          f"{held / 2**20:.1f} MiB the earlier phases hold | {smi}")
+
+    clock.done(21)
+
+    # -- 22. the multiparty protocols at logN 14, 3 parties ----------------------------------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    sums, restore = _python_int_timers()
+    try:
+        m, cold_t, warm_t, warm = cold_warm("22", lambda t: multiparty_session(dev, t))
+    finally:
+        restore()
+    peak = torch.cuda.max_memory_allocated()
+    for k in ("keys", "cts", "bct", "out", "dec"):
+        assert _same(m[k], warm[k]), f"phase 22 {k}: warm pass != cold pass"
+    del warm
+    p = m["params"]
+    print(f"phase multiparty: {MP_PARTIES} parties; CKKS on PN14QP438's chain at logN "
+          f"{p.log_n}, BGV on phase 20's at logN {m['bparams'].log_n}, T = {m['bparams'].t}")
+    report("multiparty", cold_t, warm_t)
+    for name, ms in sums.items():
+        print(f"phase multiparty: host time of {name}: {ms:.3f} ms (both passes)")
+    print(f"phase multiparty: peak device memory {(peak - held) / 2**20:.1f} MiB above the "
+          f"{held / 2**20:.1f} MiB the earlier phases hold | {smi}")
+    for name, floor in MP_BOUNDS.items():
+        st = ckks.precision_stats(m["want"][name], m["dec"][name])
+        print(f"phase multiparty: {name:24s} min {st.min_precision:.4f} bits, mean "
+              f"{st.avg_precision:.4f} bits (floor {floor}: tests/test_multiparty.py) | {smi}")
+        assert st.min_precision >= floor, f"phase 22 {name}: below the floor"
+    a, c = m["out"]["threshold 2-of-3"]
+    ideal = m["ideal"].value
+    assert torch.equal(p.ring_q.add(a.value.q, c.value.q), ideal.q) and \
+        torch.equal(p.ring_p.add(a.value.p, c.value.p), ideal.p), "phase 22 threshold"
+    print("phase multiparty: threshold 2-of-3: the combined shares of parties 1 and 3 sum to "
+          "the ideal secret exactly")
+    bdec = np.asarray(m["dec"]["BGV refresh"]).astype(np.int64)
+    assert np.array_equal(bdec % m["bparams"].t, m["bv"]), "phase 22 BGV refresh"
+    assert m["out"]["BGV refresh"][1].level == m["bparams"].max_level
+    assert m["out"]["refresh"][1].level == p.max_level
+    print(f"phase multiparty: BGV refresh level 0 -> {m['bparams'].max_level}: decoded == the "
+          f"input mod T; CKKS refresh level 0 -> {p.max_level}")
+    cm = pickle.loads(refs["multiparty"].get())
+    for k in ("keys", "cts", "bct", "out"):
+        assert _same(m[k], cm[k]), f"phase 22 {k}: card != CPU"
+    for k in m["dec"]:
+        assert np.array_equal(m["dec"][k], cm["dec"][k]), f"phase 22 {k}: decoded, card != CPU"
+    print(f"phase multiparty: card == CPU (the same calls, the same generator seeds, the plain "
+          f"NTT) for every share, key, ciphertext and decoding (CPU reference "
+          f"{cm['seconds']:.2f} s, in a worker process); B4 launches {counts['22']}")
+    del m, cm
+
+    # -- B4 at every shape phases 21-22 gave it ------------------------------------------------
+    shape_rows = check_b4_shapes(seen, dev, rng)
+    for d, shape, c, err_, _ in shape_rows:
+        assert err_ == 0, f"B4 {d} {shape}: kernel != plain ({err_})"
+    ns = sorted({shape[-1] for _, shape, *_ in shape_rows})
+    print(f"phase b4: B4 at the {len(shape_rows)} shapes (direction, shape, moduli) of phases "
+          f"21-22, N = {ns}: kernel == plain at every one")
+    loss = []
+    for phase, counted in launches.items():
+        rows = b4_loss(seen, counted, dev, rng, int32_ops_per_s, smi,
+                       f"phase {phase}, {PHASE_NAMES[phase]}")
+        busy = sum(r["launches"] * r["device_ms"] for r in rows)
+        print(f"phase b4 loss: phase {phase}: B4 device time queued x launches {busy:.3f} ms = "
+              f"{100 * busy / (walls[phase] * 1e3):.2f}% of the cold pass's "
+              f"{walls[phase]:.3f} s wall time, bound x launches "
+              f"{sum(r['launches'] * r['bound_ms'] for r in rows):.4f} ms | {smi}")
+        loss += rows
+    return {"shape_rows": shape_rows, "loss": loss,
+            "by_path": {f"{PHASE_NAMES[k]} (phase {k})": v for k, v in counts.items()}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
         return 1
+    pool, refs = start_cpu_references()
+    try:
+        return run(refs)
+    finally:
+        pool.terminate()
+        pool.join()
+
+
+def run(refs: dict) -> int:
+    """Phases 1-22 on the card; ``refs``: phases 21-22's CPU references."""
     from matrix_fhe_tpu_torch.fast import fckks, fring
     from matrix_fhe_tpu_torch.ops import ntt_cuda, ntt_plain, ntt_w22
 
     # -- 1. device ------------------------------------------------------------
+    clock = PhaseClock()
     smi = card_label()
     print(smi)
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}")
 
+    clock.done(1)
+
     # -- 2. build -------------------------------------------------------------
     from matrix_fhe_tpu_torch.ops import ntt64_cuda
     t0 = time.perf_counter()
     from matrix_fhe_tpu_torch.ops import ntt3n_cuda
     built = ntt_cuda.build_all([(ntt_cuda.SOURCE, logn) for logn in PATH_LOGNS]
-                               + [(ntt64_cuda.SOURCE, logn)
-                                  for logn in sorted(set(B4_SIZES) | set(RS_LOGNS))]
+                               + [(ntt64_cuda.SOURCE, logn) for logn in sorted(
+                                   set(B4_SIZES) | set(RS_LOGNS) | {BR_RING[0], BR_LWE[0]})]
                                + [(ntt3n_cuda.SOURCE, ntt3n_cuda.BUILD_KEY)])
     print(f"phase build: built {len(built)} libraries, "
           f"{', '.join(ntt_cuda.library_path(logn, src).name for src, logn in built)}, in "
           f"{time.perf_counter() - t0:.2f} s (one nvcc each, started together)")
+
+    clock.done(2)
 
     # -- 3. kernel vs plain at the step's NTT shapes ----------------------------
     n = 1 << LOGN
@@ -2572,6 +3190,8 @@ def main() -> int:
               *(extra[d][key] for key in ("device", "flushed", "host")
                 for d in ("fwd", "bwd"))))
     del flush
+
+    clock.done(3)
 
     # -- 4. main path: three requests ------------------------------------------
     ctx, ops = fckks.make_synthetic_context(
@@ -2662,6 +3282,8 @@ def main() -> int:
     for d in ("fwd", "bwd"):
         stats[d].update(_bound_entry(step_bounds))
 
+    clock.done(4)
+
     # -- 5. chain kernel vs plain ----------------------------------------------
     moduli = ntt_cuda.find_v2_primes(n, BENCH_LIMBS)
     tab_cpu = ntt_cuda.build_tables(n, moduli[:3], "cpu")
@@ -2682,6 +3304,8 @@ def main() -> int:
         stats[d] = {"max_abs_err": err}
         print(f"phase chain: {d:9s} [8, 3, {n}] k=3 kernel {k_ms:.4f} ms | "
               f"plain {p_ms:.4f} ms | bit-identical")
+
+    clock.done(5)
 
     # -- 6. NTT path at bench width --------------------------------------------
     tabs = ntt_cuda.build_tables(n, moduli, dev)
@@ -2748,6 +3372,8 @@ def main() -> int:
     print(f"phase ntt path: launches {path}; forward chain == {CHAIN_K} sequential "
           f"ntt_fwd launches == plain; inverse chain returns x")
 
+    clock.done(6)
+
     # -- 7. w22 transform ---------------------------------------------------------
     w22_path, w22_shape = {}, W22_SHAPES[0]
     for shape in W22_SHAPES:
@@ -2786,6 +3412,8 @@ def main() -> int:
                         f"plain {p_ms:.4f} ms")
         print(f"phase w22: {list(shape)} " + " | ".join(line) + " | bit-identical")
     print(f"phase w22: launches {w22_path}; inverse(forward(x)) == x")
+
+    clock.done(7)
 
     # -- 8. the real-key CKKS session at the bench shape --------------------------
     check_int64_wrap(dev)
@@ -2846,6 +3474,8 @@ def main() -> int:
           f"keys of rotations {CPU_GALOIS}, both ciphertexts, the product, the "
           f"{len(SESSION_ROTATIONS)} rotations and their decodings; FastEvaluator product "
           f"== fckks.mul_relin_rescale; CPU reference {sum(cpu_times.values()) / 1e3:.1f} s")
+
+    clock.done(8)
 
     # -- 9. bootstrapping at logN = 14 ----------------------------------------------
     from matrix_fhe_tpu_torch.circuits.ckks import bootstrapping as btp
@@ -2948,13 +3578,18 @@ def main() -> int:
     boot_counts = boot["counts"]
     del cpu_bts, cpu_out, cpu_meta, boot, bwarm
 
-    b4 = wide_phases(dev, smi, rng, sms, int32_ops_per_s, b4_calls, b4_launches)
-    fork = matrix_phases(dev, smi, rng, int32_ops_per_s)
-    rings = ring_phases(dev, smi, rng, int32_ops_per_s, b4.pop("wide_boot"),
+    clock.done(9)
+    b4 = wide_phases(dev, smi, rng, sms, int32_ops_per_s, clock, b4_calls, b4_launches)
+    clock.done(13)
+    fork = matrix_phases(dev, smi, rng, int32_ops_per_s, clock)
+    clock.done(16)
+    rings = ring_phases(dev, smi, rng, int32_ops_per_s, clock, b4.pop("wide_boot"),
                         fork.pop("ci_session"))
+    clock.done(20)
+    rgsw_mp = rgsw_multiparty_phases(dev, smi, rng, int32_ops_per_s, clock, refs)
     assert "jax" not in sys.modules
-    loss = b4["loss"] + fork["ci_loss"] + rings["loss"] + rings["ci_loss"]
-    print(f"phase b4 loss: B4 over phases 8-13 and 16-20: {len(loss)} shapes, "
+    loss = b4["loss"] + fork["ci_loss"] + rings["loss"] + rings["ci_loss"] + rgsw_mp["loss"]
+    print(f"phase b4 loss: B4 over phases 8-13 and 16-22: {len(loss)} shapes, "
           f"{sum(r['launches'] for r in loss)} launches, loss launches x (device - bound) "
           f"{sum(r['loss_ms'] for r in loss):.4f} ms summed | {smi}")
     ntt_cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -2973,11 +3608,12 @@ def main() -> int:
             "bootstrap setup (phase 9, cold pass: keygen + make_fast_bootstrapper to decode)":
                 b4_bkeys[d] + b4_bsession[d],
             **{k: v[d] for k, v in b4["by_path"].items()},
-            **{k: v[d] for k, v in rings["by_path"].items()}}
+            **{k: v[d] for k, v in rings["by_path"].items()},
+            **{k: v[d] for k, v in rgsw_mp["by_path"].items()}}
         launches[f"ntt64_{d}"] = 3 * b4["by_path"]["wide step PN14QP438 (phase 11, a request)"][d]
         stats[f"ntt64_{d}"] = dict(b4["stats"][d], max_abs_err=max(
             [r[-1] for r in b4["size_rows"]] + [r[3] for r in b4["shape_rows"] + rings["shape_rows"]
-                                                if r[0] == d]))
+                                                + rgsw_mp["shape_rows"] if r[0] == d]))
         REPLACES[f"ntt64_{d}"] = B4_REPLACES[d]
     for d in ("fwd", "bwd"):
         by_path[f"ntt3n_{d}"] = {k: v[d] for k, v in fork["b5_by_path"].items()}
@@ -3002,6 +3638,10 @@ def main() -> int:
             entry["launches_by_path"] = by_path[d]
         assert entry["launches"] > 0 and entry["max_abs_err"] == 0, entry
         kernels.append(entry)
+    clock.done(22)
+    for n in range(1, 23):
+        print(f"phase time: {n} {clock.times.get(n, 0.0):.3f}")
+    print(f"phase time: all {sum(clock.times.values()):.3f}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

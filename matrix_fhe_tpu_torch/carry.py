@@ -10,10 +10,12 @@ the 3N ring's literals (RLWE and Matrix-CKKS) and its factorized NTT
 tables (with kernel B5's, rebuilt from each limb's modulus and root, which
 its twist row gives back), the BGV literal and parameters (their ring_t and
 QMul basis rebuilt from T and the chain), a RingPackingEvaluator (its
-parameters, secrets, ring-switching and galois keys and monomials), and
-dicts, lists and tuples of them (the ring-swap key pairs of
-``rlwe/ring_switch.py`` and ``schemes/ckks/bridge.py`` among them), and
-numpy arrays (their words).  It works
+parameters, secrets, ring-switching and galois keys and monomials), RGSW
+ciphertexts and blind-rotation keys (their RGSW ciphertexts and galois
+keys), the CKKS refresh's shares (``RefreshShare``), and dicts, lists and
+tuples of them (the ring-swap key pairs of ``rlwe/ring_switch.py`` and
+``schemes/ckks/bridge.py``, and the multiparty protocols' lists of shares
+and of (h0, h1) pairs, among them), and numpy arrays (their words).  It works
 by the class name and the field names the two packages share, so it
 imports nothing of the JAX package; any object with those fields as numpy
 arrays is carried the same way.  64-bit words keep their
@@ -42,9 +44,11 @@ import numpy as np
 import torch
 
 from matrix_fhe_tpu_torch.circuits.ckks import bootstrapping as btp
+from matrix_fhe_tpu_torch.multiparty import mpckks
 from matrix_fhe_tpu_torch.ops import ntt_3n
 from matrix_fhe_tpu_torch.ops import samplers as smp
 from matrix_fhe_tpu_torch.ops import wide
+from matrix_fhe_tpu_torch.rgsw import blindrot, rgsw
 from matrix_fhe_tpu_torch.rlwe import elements as el
 from matrix_fhe_tpu_torch.rlwe import keys as K
 from matrix_fhe_tpu_torch.rlwe import params as rp
@@ -176,6 +180,13 @@ def carry(obj, device="cuda"):
         return K.RelinearizationKey(gadget=go(obj.gadget))
     if name == "GaloisKey":
         return K.GaloisKey(gadget=go(obj.gadget), gal_el=int(obj.gal_el))
+    if name == "RGSWCiphertext":
+        return rgsw.RGSWCiphertext(g0=go(obj.g0), g1=go(obj.g1))
+    if name == "BlindRotationKeys":
+        return blindrot.BlindRotationKeys(brks=go(obj.brks), gks=go(obj.gks))
+    if name == "RefreshShare":
+        return mpckks.RefreshShare(e2s=words(obj.e2s), s2e=words(obj.s2e),
+                                   metadata=go(obj.metadata))
     raise TypeError(f"no port counterpart for {name}")
 
 

@@ -69,9 +69,19 @@ def _negate_where(ring, g: torch.Tensor, flip: np.ndarray) -> torch.Tensor:
     return torch.where(torch.from_numpy(flip == 1).to(g.device), neg, g)
 
 
+@functools.lru_cache(maxsize=None)
+def _device_index(ring_type: str, n: int, nth_root: int, gal_el: int,
+                  device: torch.device) -> torch.Tensor:
+    """``ntt_index`` as an int64 tensor on ``device``, moved there once: a
+    gather then copies nothing from the host (a copy from pageable host
+    memory waits for the device)."""
+    idx = ntt_index(ring_type, n, nth_root, gal_el)
+    return torch.from_numpy(idx.astype(np.int64)).to(device)
+
+
 def automorphism_ntt(ring, p: torch.Tensor, gal_el: int) -> torch.Tensor:
     """NTT-domain automorphism: a gather."""
-    return _gather(p, ntt_index(ring.ring_type, ring.n, ring.nth_root, gal_el))
+    return p[..., _device_index(ring.ring_type, ring.n, ring.nth_root, gal_el, p.device)]
 
 
 @functools.lru_cache(maxsize=None)

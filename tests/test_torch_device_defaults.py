@@ -9,8 +9,11 @@ import pytest
 import torch
 
 from matrix_fhe_tpu_torch import carry, rlwe
+from matrix_fhe_tpu_torch.multiparty import mpbgv, mpckks, protocols, threshold
 from matrix_fhe_tpu_torch.fast import fckks, fring, frns, wckks, wring, wrns
 from matrix_fhe_tpu_torch.ops import ntt_3n, ntt_cuda, ntt_w22, rings, rns_tools
+from matrix_fhe_tpu_torch.rgsw import blindrot, rgsw
+from matrix_fhe_tpu_torch.rlwe import keys as K
 from matrix_fhe_tpu_torch.rlwe import params as rparams
 from matrix_fhe_tpu_torch.rlwe import ring_packing
 from matrix_fhe_tpu_torch.schemes import bgv, ckks, matrix_ckks
@@ -28,6 +31,26 @@ CI = primes.NTTFriendlyPrimesGenerator(40, 4 * N).next_alternating_primes(2)
 
 def _zeros(*shape):
     return torch.zeros(shape, dtype=torch.int32).numpy()
+
+
+def _params():
+    return rlwe.new_parameters(rlwe.ParametersLiteral(logn=5, q=tuple(Q), p=tuple(P)))
+
+
+def _lwe_params():
+    return rlwe.new_parameters(rlwe.ParametersLiteral(logn=4, q=tuple(Q[:1])))
+
+
+def _gen():
+    return torch.Generator().manual_seed(0)
+
+
+def _share(params):
+    """A zero (Q, P) share on the parameters' device."""
+    return K.QPPoly(q=torch.zeros((len(params.q), params.n), dtype=torch.int64,
+                                  device=params.device),
+                    p=torch.zeros((len(params.p), params.n), dtype=torch.int64,
+                                  device=params.device))
 
 
 # each builds with its default device and returns one of the tensors it made
@@ -81,6 +104,26 @@ CONSTRUCTORS = {
         torch.Generator().manual_seed(0), lambda ln, device: rlwe.new_parameters(
             rlwe.ParametersLiteral(logn=ln, q=tuple(Q), p=tuple(P)), device),
         4, 5).x_pow2[5][0],
+    "rgsw.sample_rgsw": lambda: rgsw.sample_rgsw(_gen(), _params()).g0[0].a_q,
+    "blindrot.init_test_polynomial": lambda: blindrot.init_test_polynomial(
+        abs, 1.0, _params(), -1, 1),
+    "blindrot.sample_evaluation_key": lambda: blindrot.sample_evaluation_key(
+        _gen(), _params(), _lwe_params()).brks[0].g1[0].e,
+    "blindrot.Evaluator":
+        lambda: blindrot.Evaluator(_params(), _lwe_params()).params_br.ring_q.moduli,
+    "protocols.sample_crp_qp": lambda: protocols.sample_crp_qp(_gen(), _params()).p,
+    "protocols.sample_crp_q": lambda: protocols.sample_crp_q(_gen(), _params(), 0),
+    "protocols.RelinKeyGen.sample_round1": lambda: protocols.RelinKeyGen.sample_round1(
+        _gen(), _params()).u,
+    "threshold.Thresholdizer.sample_shamir_polynomial":
+        lambda: threshold.Thresholdizer.sample_shamir_polynomial(_gen(), _params(), 2)[0].q,
+    "threshold.Combiner": lambda: (lambda p: threshold.Combiner(p, 1, [1, 2], 2).gen_additive_share(
+        [1, 2], _share(p)))(_params()).value.q,
+    "mpckks.set_coefficients_bigint": lambda: (lambda p: mpckks.set_coefficients_bigint(
+        p, 0, [1, -2], rlwe.MetaData()))(_params()),
+    "mpbgv.EncToShare.sample_share": lambda: (lambda p: mpbgv.EncToShare.sample_share(
+        _gen(), p, rlwe.Ciphertext(value=(p.ring_q.moduli[None, :1],) * 2)).mask_t)(
+        bgv.new_parameters(bgv.BGVParametersLiteral(logn=5, t=257, q=tuple(Q), p=tuple(P)))),
 }
 
 

@@ -15,6 +15,7 @@ The helpers here (``modules``, ``digest``, ``check_case``) serve the other
 circuit test files too.
 """
 
+import dataclasses
 import hashlib
 from importlib import import_module
 from types import SimpleNamespace
@@ -41,7 +42,10 @@ _NAMES = {"poly": "circuits.polynomial", "bn": "utils.bignum", "ckks": "schemes.
           "minimax": "circuits.ckks.minimax", "comparison": "circuits.ckks.comparison",
           "inverse": "circuits.ckks.inverse", "rlwe_keys": "rlwe.keys", "encryptor": "rlwe.encryptor",
           "rs": "rlwe.ring_switch", "bridge": "schemes.ckks.bridge", "rpk": "rlwe.ring_packing",
-          "noise": "rlwe.noise", "bgv": "schemes.bgv", "bgv_circuits": "circuits.bgv_circuits"}
+          "noise": "rlwe.noise", "bgv": "schemes.bgv", "bgv_circuits": "circuits.bgv_circuits",
+          "rgsw": "rgsw.rgsw", "blindrot": "rgsw.blindrot", "mp": "multiparty.protocols",
+          "threshold": "multiparty.threshold", "mpckks": "multiparty.mpckks",
+          "mpbgv": "multiparty.mpbgv"}
 
 
 def modules(root: str) -> SimpleNamespace:
@@ -53,12 +57,19 @@ JAX, PORT = modules("matrix_fhe_tpu"), modules("matrix_fhe_tpu_torch")
 
 
 def _arrays(x):
+    if x is None:
+        return
     if isinstance(x, (list, tuple)):
         for y in x:
             yield from _arrays(y)
-    elif hasattr(x, "metadata"):  # a ciphertext or plaintext: its limbs, then its scale
+    elif hasattr(x, "metadata") and hasattr(x, "value"):
+        # a ciphertext or plaintext: its limbs, then its scale
         yield from _arrays(x.value)
         yield str(x.metadata.scale).encode()
+    elif dataclasses.is_dataclass(x):  # a key or a share: its fields in order
+        for f in dataclasses.fields(x):
+            if f.name != "metadata":
+                yield from _arrays(getattr(x, f.name))
     elif isinstance(x, torch.Tensor):
         yield x.cpu().numpy().astype("<i8").tobytes()
     else:
@@ -66,9 +77,10 @@ def _arrays(x):
 
 
 def digest(x) -> str:
-    """sha256 over the limbs of ``x`` (ciphertexts, plaintexts, arrays or
-    lists of them) as little-endian 64-bit words, each element's scale
-    after its limbs: the same bytes from either package."""
+    """sha256 over the limbs of ``x`` (ciphertexts, plaintexts, arrays,
+    dataclasses of them such as keys and shares, or lists of them) as
+    little-endian 64-bit words, each element's scale after its limbs: the
+    same bytes from either package."""
     h = hashlib.sha256()
     for b in _arrays(x):
         h.update(b)

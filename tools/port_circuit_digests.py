@@ -20,6 +20,12 @@ bootstrap, noise and BGV / BFV (JAX on the CPU, context + cases):
 which the two Paterson-Stockmeyer polynomials 42 s) and
 ``test_torch_boot_packed`` ~5.5 min (56 + 265 + 8: the packed case's first
 bootstrap compiles the JAX evaluator's graphs).
+
+The modules of the base-two key switches, RGSW, blind rotation and the
+multiparty protocols: ``test_torch_base2`` ~2 min (78 + 32 s),
+``test_torch_rgsw`` ~1.8 min, ``test_torch_blindrot`` ~8 min (364 s of
+context, the eager JAX keygen of both sizes, + 34 + 64 s for the two
+``evaluate``s) and ``test_torch_multiparty`` ~2.6 min.
 """
 
 from __future__ import annotations
@@ -38,7 +44,8 @@ MODULES = ("test_torch_polynomial", "test_torch_mod1", "test_torch_lintrans",
            "test_torch_weval", "test_torch_wboot", "test_torch_comparison_inverse",
            "test_torch_matrix_ckks", "test_torch_ci", "test_torch_ring_switch",
            "test_torch_bridge", "test_torch_ring_packing", "test_torch_boot_packed",
-           "test_torch_noise", "test_torch_bgv")
+           "test_torch_noise", "test_torch_bgv", "test_torch_base2", "test_torch_rgsw",
+           "test_torch_blindrot", "test_torch_multiparty")
 
 
 def main() -> None:
