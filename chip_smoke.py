@@ -95,9 +95,10 @@ Then bootstrapping, the third main path:
    on the CPU (tools/port_precision_floor.py), the 2^34 round trip and
    EvalMod held to it less 1 bit (mean); B1 at every shape the bootstrap
    gives it, bit-identical to the plain version, with its cluster size and
-   device time; and the same bootstrap and evaluate on the CPU (the card's
-   keys copied over, the plain NTT) equal to the card's limb for limb and in
-   the decoded values.
+   device time; and the same session on the CPU from the same seeds (a
+   worker process, the plain NTT): its keys equal to the card's (by
+   digest), its input, bootstrap and evaluate equal to the card's limb for
+   limb and in the decoded values (checked after phase 22).
 
 Then the wide path (41-61-bit primes, 64-bit words) and kernel B4, the NTT
 of 64-bit words (csrc/ntt64.cu), which phases 8 and 9 now run too (every
@@ -121,14 +122,15 @@ plain NTT on the CPU, and its launches there are printed):
     rotations_hoisted over the 8 elements, B4 launches a request, the median
     of 10 more, the first request's digests equal to the JAX package's
     (tools/port_reference_digest.py wide), and every request equal to the
-    same step on the CPU (the plain NTT);
+    same step on the CPU (the plain NTT; a worker process, by digest);
 12. one wide bootstrap at fboot.wide_parameters_literal(14) (17 + 2 primes
     of 45-56 bits, 8192 slots, sparse secret weight 32) through the user's
     entry points, cold and warm as phase 9: keygen (draws and deterministic
     part), make_wide_bootstrapper, encode + encrypt, bootstrap (cold, warm,
     3 more), decrypt + decode; B4 and B1 launches a bootstrap, peak device
-    memory, the stage-by-stage table, the same bootstrap on the CPU with the
-    card's keys equal to the card's limb for limb and decoded, and the
+    memory, the stage-by-stage table, the same session on the CPU from the
+    same seeds (a worker process) with keys, input and bootstrap equal to
+    the card's limb for limb and decoded (checked after phase 22), and the
     decoded precision held to the JAX package's criterion for this chain
     (tests/test_wboot.py: mean >= 15 bits, min >= 5);
 13. the comparison and inverse circuits on the wide evaluator at logN 14
@@ -136,7 +138,8 @@ plain NTT on the CPU, and its launches there are printed):
     scale 2^45, relinearization and inverse galois keys): sign, step, max,
     min, goldschmidt_division and evaluate_positive_domain on 8192 slots
     drawn as that test draws them, within its bounds, each equal to the
-    same circuit on the CPU with the card's keys.  Then B4 by launch shape
+    same circuit on the CPU from the same seeds, keys included (a worker
+    process; checked after phase 22).  Then B4 by launch shape
     over the cold passes of phases 8, 9 and 11-13 (every call on the card
     recorded with its shape and counted, merged over moduli): launches,
     device time queued, bound and loss, launches x (device - bound), with
@@ -170,15 +173,16 @@ a mixed-radix FFT), and the conjugate-invariant (CI) ring over B4's CI mode:
     max |error| <= 0.1 (tests/test_matrix_ckks.py's tolerance) against the
     numpy model (the ring product mod X^N - X^{N/2} + 1, the map X -> X^g),
     its error printed in bits; peak device memory; and the same session on
-    the CPU with the card's keys equal to the card's, limb for limb and
-    decoded;
+    the CPU from the same seeds (a worker process) equal to the card's,
+    keys (by digest), limb for limb and decoded;
 16. CKKS on the CI ring at logN 14 (55 + 45x6-bit Q, a 61-bit P, scale
     2^45, 16384 real slots from default_rng(0); tools/port_precision_floor.py
     ci's literal and vectors): keygen, encode + encrypt, mul_relin +
     rescale and a rotation by one slot, decrypt + decode, with B4's
     launches on the CI ring at each (the standard ring's none), the min
     precision held to the JAX package's less 1 bit, and the same code on
-    the CPU with the card's keys equal to the card's; then B4 on the CI ring
+    the CPU from the same seeds (a worker process) equal to the card's,
+    keys (by digest) included; then B4 on the CI ring
     (ntt64_cuda.ntt_ci_fwd / ntt_ci_bwd: the kernel's CI mode, the fold in
     its load and store) bit-identical to its plain version at every shape
     the session gave it, one kernel a call there (three calls captured
@@ -195,7 +199,8 @@ and sparse bootstrap and BGV / BFV, all on B4 (its standard and CI modes):
 each phase runs through the user's entry points in a cold and a warm pass
 (the same seeds; the warm pass must give the cold pass's keys and outputs),
 prints each stage's latency in both, and holds its outputs to the same
-calls on the CPU (the card's inputs and keys, the plain NTT):
+calls on the CPU (the card's inputs and keys, the plain NTT; phase 20: the
+same session from the same seeds; both in a worker process):
 
 17. ring switching and packing at logN 12-14 on PN14QP438's chain (7 + 2
     primes of 45-55 bits): gen_ring_swap_keys between logN 13 and 14,
@@ -289,6 +294,16 @@ means of launches issued back to back from the host (_event_ms).  No single
 PyTorch call computes a negacyclic NTT mod q, so library_ms is null.  Then, as its last line,
 {"ok": true, "device": {...}}.  Any failed check raises and exits non-zero.
 The script imports no jax.
+
+The CPU references of phases 9, 11-13, 15, 16 and 20-22 (CPU_REFERENCES)
+are whole sessions rebuilt from their generator seeds, keys included, and
+phase 17's runs the same calls on the card's inputs and keys, pickled over
+(SHIPPED_REFERENCES).  They run in spawned worker processes started with
+the script (CPUReferences: one for each two cores beyond the main
+process's two, at most three), beside the card's phases, and are
+terminated when it ends.  Phases 21-22 read theirs in place; the others
+are checked after phase 22 (hold_to_cpu_references), and each one's wait
+there counts to its phase.
 """
 
 from __future__ import annotations
@@ -301,6 +316,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -401,6 +417,8 @@ WIDE_SHAPES = {
         num_rot=NUM_ROT, device=dev),
     "wide61": lambda wckks, dev: wckks.make_synthetic_context(
         LOGN, 0, 0, moduli=(WIDE61_Q, WIDE61_P), seed=SEED, num_rot=NUM_ROT, device=dev)}
+# phase 11's three requests: the order of the four operands in each
+WIDE_ORDERS = [(0, 1, 2, 3), (2, 3, 0, 1), (1, 0, 3, 2)]
 WIDE_STEP_SHA256 = {
     "pn14qp438": ("22ec29b7c996268077d30019ce19f9d2ded8d0fec0a1c9867f9d54eb8b12c01d",
                   "96be3223eb1793738305db5d728e583cd5629b6d9f9722705804266358cba9c3"),
@@ -695,6 +713,37 @@ def _same(a, b) -> bool:
     if isinstance(a, np.ndarray):
         return np.array_equal(a, b)
     return a == b
+
+
+def _tree_digest(obj) -> str:
+    """sha256 of ``obj``'s tensors, arrays and values, walked as ``_same``
+    walks them: two trees with equal digests are equal under ``_same``."""
+    h = hashlib.sha256()
+
+    def walk(o):
+        if isinstance(o, torch.Tensor):
+            h.update(f"tensor {o.dtype} {tuple(o.shape)}".encode())
+            h.update(o.detach().cpu().contiguous().numpy().tobytes())
+        elif isinstance(o, dict):
+            h.update(f"dict {len(o)}".encode())
+            for k, v in o.items():
+                h.update(repr(k).encode())
+                walk(v)
+        elif isinstance(o, (tuple, list)):
+            h.update(f"list {len(o)}".encode())
+            for v in o:
+                walk(v)
+        elif hasattr(o, "__dataclass_fields__"):
+            for f in o.__dataclass_fields__:
+                h.update(f.encode())
+                walk(getattr(o, f))
+        elif isinstance(o, np.ndarray):
+            h.update(f"array {o.dtype} {o.shape}".encode())
+            h.update(np.ascontiguousarray(o).tobytes())
+        else:
+            h.update(repr(o).encode())
+    walk(obj)
+    return h.hexdigest()
 
 
 def _to_cpu(gk):
@@ -1195,13 +1244,12 @@ def time_b4(d, shape, ring, dev, rng, flush) -> dict:
 def wide_step(name: str, dev):
     """Phase 11 for one of bench.py's wide shapes: three requests (each one
     mul_relin_rescale and one rotations_hoisted over the 8 galois elements),
-    B4 launches a request, 10 steady repeats, the digests, and every request
-    against the same step on the CPU."""
+    B4 launches a request, 10 steady repeats, the digests, and the digest of
+    every request's outputs (held to ``wide_step_reference`` on the CPU)."""
     from matrix_fhe_tpu_torch.fast import wckks
     ctx, ops = WIDE_SHAPES[name](wckks, dev)
-    orders = [(0, 1, 2, 3), (2, 3, 0, 1), (1, 0, 3, 2)]
     outs, lat, counts = [], [], []
-    for order in orders:
+    for order in WIDE_ORDERS:
         a = [ops[i] for i in order]
         t0 = time.perf_counter()
         step, c_step = _b4_counted(dev, lambda: wckks.mul_relin_rescale(ctx, *a))
@@ -1230,17 +1278,23 @@ def wide_step(name: str, dev):
     assert _digest64([o0, o1]) == want_step, f"{name}: mul_relin_rescale digest != JAX's"
     assert _digest64([t for g in ctx.gal_els for t in rots[g]]) == want_rots, \
         f"{name}: rotations_hoisted digest != JAX's"
-    # every request on the CPU, through the plain NTT
-    cpu = torch.device("cpu")
-    cpu_ctx, cpu_ops = WIDE_SHAPES[name](wckks, cpu)
-    t0 = time.perf_counter()
-    for order, (step, rots) in zip(orders, outs):
-        a = [cpu_ops[i] for i in order]
-        assert _same(step, wckks.mul_relin_rescale(cpu_ctx, *a)), f"{name}: step, card != CPU"
-        assert _same(rots, wckks.rotations_hoisted(cpu_ctx, a[0], a[1], cpu_ctx.gal_els)), \
-            f"{name}: rotations, card != CPU"
-    cpu_s = time.perf_counter() - t0
-    return {"ctx": ctx, "lat": lat, "counts": counts[0], "reps": reps, "cpu_s": cpu_s}
+    return {"ctx": ctx, "lat": lat, "counts": counts[0], "reps": reps,
+            "digest": _tree_digest(outs)}
+
+
+def wide_step_reference(dev, times: dict) -> dict:
+    """Phase 11's three requests at each of bench.py's wide shapes on
+    ``dev`` (the contexts from their seed): the digests of their outputs."""
+    from matrix_fhe_tpu_torch.fast import wckks
+    digests = {}
+    for name in WIDE_SHAPES:
+        def requests():
+            ctx, ops = WIDE_SHAPES[name](wckks, dev)
+            return [(wckks.mul_relin_rescale(ctx, *(ops[i] for i in order)),
+                     wckks.rotations_hoisted(ctx, ops[order[0]], ops[order[1]], ctx.gal_els))
+                    for order in WIDE_ORDERS]
+        digests[name] = _tree_digest(_timed(times, name, dev, requests))
+    return {"outs": digests}
 
 
 def wide_boot_session(p, sk, evk, times: dict, repeats: int = 0) -> dict:
@@ -1287,10 +1341,10 @@ def circuit_inputs(slots: int) -> dict:
             "inverse": np.random.default_rng(5).uniform(0.3, 3.0, slots)}
 
 
-def wide_circuits(dev, times: dict, keys=None) -> dict:
+def wide_circuits(dev, times: dict, keys=None, names=None) -> dict:
     """Phase 13: the sign, step, max/min, Goldschmidt division and inverse
-    circuits on the wide evaluator at logN 14 (the chain of
-    tests/test_comparison_inverse.py), on ``keys`` (secret,
+    circuits (or those in ``names``) on the wide evaluator at logN 14 (the
+    chain of tests/test_comparison_inverse.py), on ``keys`` (secret,
     relinearization, galois) or the port's own made on ``dev``; each held to
     tests/test_comparison_inverse.py's bounds."""
     from matrix_fhe_tpu_torch.circuits.ckks import comparison, inverse, minimax
@@ -1327,6 +1381,8 @@ def wide_circuits(dev, times: dict, keys=None) -> dict:
             "evaluate_positive_domain": 1 / vals["inverse"]}
     out, counts, errs, ok = {}, {}, {}, {}
     for name, fn in circuits.items():
+        if names is not None and name not in names:
+            continue
         out[name], counts[name] = _b4_counted(dev, lambda: _timed(times, name, dev, fn))
         got = np.real(enc.decode(decryptor.decrypt(params, sk, out[name])))
         err = np.abs(got - want[name])
@@ -1380,6 +1436,7 @@ def wide_phases(dev, smi: str, rng, sms: int, int32_ops_per_s: float, clock: Pha
     # -- 11. the wide step at bench.py's shapes ------------------------------------------
     b4_seen: dict = {}
     steps, step_shapes = {}, {}
+    to_hold = {}
     for name in WIDE_SHAPES:
         seen: dict = {}
         steps[name] = b4_shapes(lambda: wide_step(name, dev), seen, b4_launches)
@@ -1399,8 +1456,9 @@ def wide_phases(dev, smi: str, rng, sms: int, int32_ops_per_s: float, clock: Pha
             print(f"phase wide step: {name} steady {k}: median {statistics.median(v):.3f} ms "
                   f"(min {min(v):.3f}, max {max(v):.3f}, 10 runs) | {smi}")
         print(f"phase wide step: {name} B4 launches a request {st['counts']}; digests equal the "
-              f"JAX package's; every request equals the same step on the CPU (plain NTT; "
-              f"{st['cpu_s']:.1f} s for the three)")
+              f"JAX package's")
+
+    to_hold["wide step"] = {"outs": {name: st["digest"] for name, st in steps.items()}}
 
     clock.done(11)
 
@@ -1453,20 +1511,9 @@ def wide_phases(dev, smi: str, rng, sms: int, int32_ops_per_s: float, clock: Pha
         print(f"phase wide boot: stage {stage:13s} level {ct_s.level:2d} scale 2^"
               f"{np.log2(float(ct_s.scale)):6.2f} | own mean {own[0]:8.4f} min {own[1]:8.4f} "
               f"bits | total mean {total[0]:8.4f} min {total[1]:8.4f} bits | {note}")
-    # the same bootstrap on the CPU, with the card's keys, through the plain NTT
-    cpu = torch.device("cpu")
-    ctimes_boot: dict = {}
-    cpu_wbts = _timed(ctimes_boot, "make_wide_bootstrapper", cpu, lambda: fboot.make_wide_bootstrapper(
-        btp.Parameters(fboot.wide_parameters_literal(LOGN), device=cpu), _move(wevk, cpu)))
-    cpu_wout = _timed(ctimes_boot, "bootstrap", cpu,
-                      lambda: cpu_wbts.bootstrap(_move(wboot["ct"], cpu)))
-    assert _same(wout, cpu_wout), "wide bootstrap: card != CPU"
-    assert np.array_equal(boot_decode(cpu_wbts, _move(wsk, cpu), cpu_wout), wboot["dec"]), \
-        "wide bootstrap: decoded values, card != CPU"
-    print("phase wide boot: card == CPU (the card's keys, the plain NTT), limb for limb and "
-          "decoded; CPU reference " + ", ".join(f"{k} {v / 1e3:.1f} s"
-                                                 for k, v in ctimes_boot.items()))
-    del cpu_wbts, cpu_wout
+    # held to the same session on the CPU (a worker process, the plain NTT) after phase 22
+    to_hold["wide boot"] = {"keys": _tree_digest((wsk, wevk)),
+                         **{k: wboot[k] for k in CPU_REFERENCES["wide boot"] if k != "keys"}}
     assert floor_met, "wide bootstrap: decoded precision below the JAX package's criterion"
     del wwarm, wkeys2
 
@@ -1475,19 +1522,14 @@ def wide_phases(dev, smi: str, rng, sms: int, int32_ops_per_s: float, clock: Pha
     # -- 13. the comparison and inverse circuits on the wide evaluator ----------------------
     ctimes: dict = {}
     circ = b4_shapes(lambda: wide_circuits(dev, ctimes), b4_seen, b4_launches)
-    cpu_ctimes: dict = {}
-    cpu_circ = wide_circuits(cpu, cpu_ctimes, keys=_move(circ["keys"], cpu))
     for name, err in circ["errs"].items():
-        same = _same(circ["out"][name], cpu_circ["out"][name])
         print(f"phase circuits: {name:24s} {ctimes[name]:10.3f} ms, level out "
               f"{circ['out'][name].level}, max |error| {err:.3e} (bound "
               f"{CIRCUIT_BOUNDS[name]}{' (1 + |1/x|)' if name == 'evaluate_positive_domain' else ''}"
-              f"), B4 launches {circ['counts'][name]}, card == CPU: {same} | {smi}")
+              f"), B4 launches {circ['counts'][name]} | {smi}")
         assert circ["ok"][name], f"{name}: outside the JAX test's bound"
-        assert same, f"{name}: card != CPU"
-    print(f"phase circuits: sign polynomial {ctimes['sign polynomial (host)']:.1f} ms on the host; "
-          f"CPU reference (the card's keys, the plain NTT) "
-          f"{sum(v for k, v in cpu_ctimes.items() if k in circ['out']) / 1e3:.1f} s")
+    print(f"phase circuits: sign polynomial {ctimes['sign polynomial (host)']:.1f} ms on the host")
+    to_hold["circuits"] = {"keys": _tree_digest(circ["keys"]), "out": circ["out"]}
 
     clock.done(13)
 
@@ -1543,7 +1585,7 @@ def wide_phases(dev, smi: str, rng, sms: int, int32_ops_per_s: float, clock: Pha
     loss = b4_loss({**b4_calls, **b4_seen}, b4_launches, dev, rng, int32_ops_per_s, smi,
                    "phases 8-13")
     return {"size_rows": size_rows, "shape_rows": shape_rows, "stats": b4_stats,
-            "by_path": by_path, "loss": loss,
+            "by_path": by_path, "loss": loss, "to_hold": to_hold,
             "wide_boot": {"p": wp, "sk": wsk, "evk": wevk, "bts": wboot["bts"]}}
 
 # -- phases 14-16: the fork's rings: B5, Matrix-CKKS at N = 12288, CKKS on the CI ring --
@@ -1904,15 +1946,7 @@ def matrix_phases(dev, smi: str, rng, int32_ops_per_s: float, clock: PhaseClock)
     print(f"phase matrix: B5 launches keygen {ms['counts_keys']}; peak device memory "
           f"{(peak - held) / 2**20:.1f} MiB above the {held / 2**20:.1f} MiB the earlier phases "
           f"hold | {smi}")
-    ctimes: dict = {}
-    cpu = matrix_session(torch.device("cpu"), ctimes, keys=ms["keys"])
-    assert _same(ms["cts"], cpu["cts"]), "Matrix-CKKS encryptions: card != CPU"
-    for name in ops:
-        assert _same(ms["outs"][name], cpu["outs"][name]), f"Matrix-CKKS {name}: card != CPU"
-        assert np.array_equal(ms["dec"][name], cpu["dec"][name]), f"{name}: decoded card != CPU"
-    print("phase matrix: card == CPU (the card's keys, the plain NTT) for both encryptions and "
-          "every operation, limb for limb and decoded; CPU reference "
-          + ", ".join(f"{k} {ctimes[k] / 1e3:.2f} s" for k in ops))
+    to_hold = {"matrix": _held(ms, "matrix")}
 
     clock.done(15)
 
@@ -1971,13 +2005,7 @@ def matrix_phases(dev, smi: str, rng, int32_ops_per_s: float, clock: PhaseClock)
     for what, c in ci["counts"].items():
         assert c["standard"] == 0, f"CI {what}: the standard ring's B4 launched"
     assert ci["counts"]["mul_relin + rescale"]["fwd"] > 0
-    cpu_ci = ci_session(torch.device("cpu"), {}, keys=ci["keys"])
-    assert _same(ci["cts"], cpu_ci["cts"]), "CI encryptions: card != CPU"
-    for name in ci["outs"]:
-        assert _same(ci["outs"][name], cpu_ci["outs"][name]), f"CI {name}: card != CPU"
-        assert np.array_equal(ci["dec"][name], cpu_ci["dec"][name]), f"CI {name}: decoded"
-    print("phase ci: card == CPU (the card's keys, the plain NTT) for both encryptions, the "
-          "product and the rotation, limb for limb and decoded")
+    to_hold["ci"] = _held(ci, "ci")
 
     clock.done(16)
 
@@ -2024,7 +2052,7 @@ def matrix_phases(dev, smi: str, rng, int32_ops_per_s: float, clock: PhaseClock)
     ci_loss = b4_loss(ci_seen, ci_launches, dev, rng, int32_ops_per_s, smi, "phase 16, CI ring",
                       ci=True)
     return {"b5_stats": stats, "b5_launches": total(ms["counts"].values()), "ci_loss": ci_loss,
-            "b5_by_path": b5_by_path, "ci_stats": ci_stats,
+            "b5_by_path": b5_by_path, "ci_stats": ci_stats, "to_hold": to_hold,
             "ci_launches": total(ci["counts"].values()),
             "ci_by_path": {k: {"fwd": v["fwd"], "bwd": v["bwd"]}
                            for k, v in ci["counts"].items()},
@@ -2178,6 +2206,12 @@ def check_ring_switch(s: dict) -> dict:
     return err
 
 
+# what ring_switch_cpu reads of phase 17's session, and of its RingPackingEvaluator
+RING_SWITCH_INPUTS = ("keys", "ct_lo", "up", "down", "ct_gap", "expand", "pack", "ct_split",
+                      "split", "merge")
+RING_PACKING_FIELDS = ("sk", "evk_up", "evk_down", "gks_min", "x_pow2", "x_inv_pow2")
+
+
 def ring_switch_cpu(s: dict) -> dict:
     """The card's switch_up / switch_down, expand / pack and split / merge
     again on the CPU, from the card's inputs and keys, through the plain
@@ -2199,9 +2233,9 @@ def ring_switch_cpu(s: dict) -> dict:
                                       zero_garbage_slots=True, gks=gks), s["pack"])):
         assert _same(want, _timed(t, name, cpu, fn)), f"phase 17 {name}: card != CPU"
     ev = s["ev"]
-    cev = rpk.RingPackingEvaluator.from_keys(params, *(_move(getattr(ev, f), cpu) for f in (
-        "sk", "evk_up", "evk_down", "gks_min")))
-    for f in ("x_pow2", "x_inv_pow2"):
+    cev = rpk.RingPackingEvaluator.from_keys(params, *(_move(getattr(ev, f), cpu)
+                                                       for f in RING_PACKING_FIELDS[:4]))
+    for f in RING_PACKING_FIELDS[4:]:
         assert _same(getattr(ev, f), getattr(cev, f)), f"phase 17 {f}: card != CPU"
     split = _timed(t, "split", cpu, lambda: cev.split(_move(s["ct_split"], cpu), hi.log_n))
     assert _same(s["split"], split), "phase 17 split: card != CPU"
@@ -2381,7 +2415,8 @@ def bgv_session(dev, times: dict, keys=None) -> dict:
             "model": _bgv_model(v1, v2, diags)}
 
 
-def ring_phases(dev, smi: str, rng, int32_ops_per_s: float, clock: PhaseClock, wide: dict,
+def ring_phases(dev, smi: str, rng, int32_ops_per_s: float, clock: PhaseClock,
+                refs: CPUReferences, wide: dict,
                 ci: dict) -> dict:
     """Phases 17-20 (see the module's docstring); returns what the kernels
     line reports of B4 on these paths and B4's loss by shape over them."""
@@ -2443,10 +2478,12 @@ def ring_phases(dev, smi: str, rng, int32_ops_per_s: float, clock: PhaseClock, w
                  "down": noise.noise_evaluation_key(hi, down.gadget, sk_hi.value.q, emb)}
     print(f"phase ring switch: key noise (log2 std, rlwe/noise.py) evk_up "
           f"{key_noise['up']:.4f} bits, evk_down {key_noise['down']:.4f} bits")
-    cpu_t = ring_switch_cpu(s)
-    print("phase ring switch: card == CPU (the card's inputs and keys, the plain NTT) for "
-          "switch_up, switch_down, expand, pack, split, merge and the monomials; CPU "
-          + ", ".join(f"{k} {v / 1e3:.2f} s" for k, v in cpu_t.items()))
+    # held to the same calls on the CPU (a worker process) after phase 22
+    ev = s["ev"]
+    refs.submit("ring switch", {
+        **{k: s[k] for k in RING_SWITCH_INPUTS},
+        "ev": types.SimpleNamespace(**_move({f: getattr(ev, f) for f in RING_PACKING_FIELDS},
+                                            "cpu"))})
     print(f"phase ring switch: B4 launches {counts['17']}")
     del s
 
@@ -2544,14 +2581,9 @@ def ring_phases(dev, smi: str, rng, int32_ops_per_s: float, clock: PhaseClock, w
         assert ok, f"phase 20 {name}: decoded != numpy mod T"
     rlk_noise = noise.noise_relinearization_key(bp, bg["keys"][1], bg["keys"][0])
     print(f"phase bgv: relinearization key noise (log2 std, rlwe/noise.py) {rlk_noise:.4f} bits")
-    cbg = bgv_session(cpu, {}, keys=bg["keys"])
-    assert _same(bg["cts"], cbg["cts"]), "phase 20 encryptions: card != CPU"
-    for name in bg["outs"]:
-        assert _same(bg["outs"][name], cbg["outs"][name]), f"phase 20 {name}: card != CPU"
-        assert np.array_equal(bg["dec"][name], cbg["dec"][name]), f"phase 20 {name}: decoded"
-    print(f"phase bgv: card == CPU (the card's keys, the plain NTT) for both encryptions and "
-          f"every result, limb for limb and decoded; B4 launches {counts['20']}")
-    del bg, cbg
+    to_hold = {"bgv": _held(bg, "bgv")}
+    print(f"phase bgv: B4 launches {counts['20']}")
+    del bg
 
     clock.done(20)
 
@@ -2573,6 +2605,7 @@ def ring_phases(dev, smi: str, rng, int32_ops_per_s: float, clock: PhaseClock, w
     ci_loss = b4_loss(ci_seen, ci_launches, dev, rng, int32_ops_per_s, smi,
                       "phase 18, CI ring", ci=True)
     return {"shape_rows": shape_rows, "ci_rows": ci_rows, "loss": loss, "ci_loss": ci_loss,
+            "to_hold": to_hold,
             "by_path": {f"{PHASE_NAMES[k]} (phase {k})": v for k, v in counts.items()},
             "ci_launches": {d: sum(n for (dd, *_), n in ci_launches.items() if dd == d)
                             for d in ("fwd", "bwd")}}
@@ -2887,38 +2920,164 @@ def _python_int_timers():
     return sums, restore
 
 
-# each CPU reference session of phases 21-22 and the outputs the card's are held to
-CPU_REFERENCES = {"rgsw": ("sk", "cts", "rg", "outs", "dec"),
+def _held(out: dict, name: str) -> dict:
+    """What the card's session ``out`` is held to reference ``name`` by: its
+    keys as their digest and the outputs ``CPU_REFERENCES`` names."""
+    return {"keys": _tree_digest(out["keys"]),
+            **{k: out[k] for k in CPU_REFERENCES[name] if k != "keys"}}
+
+
+def boot_reference(dev, times: dict) -> dict:
+    """Phase 9's cold pass from its seeds on ``dev``: the keys (as their
+    digest), the input, bootstrap, evaluate(iterations=2) and both decodings."""
+    from matrix_fhe_tpu_torch.circuits.ckks import bootstrapping as btp
+    from matrix_fhe_tpu_torch.fast import fboot
+    bp = btp.Parameters(fboot.FAST_N14, device=dev)
+    sk, evk = boot_keys(bp, times)
+    return {"keys": _tree_digest((sk, evk)), **boot_session(bp, sk, evk, times)}
+
+
+def wide_boot_reference(dev, times: dict) -> dict:
+    """Phase 12's cold pass from its seeds on ``dev``: the keys (as their
+    digest), the input, the bootstrap and its decoding."""
+    from matrix_fhe_tpu_torch.circuits.ckks import bootstrapping as btp
+    from matrix_fhe_tpu_torch.fast import fboot
+    wp = btp.Parameters(fboot.wide_parameters_literal(LOGN), device=dev)
+    sk, evk = boot_keys(wp, times)
+    return {"keys": _tree_digest((sk, evk)), **wide_boot_session(wp, sk, evk, times)}
+
+
+def _keys_digested(session, **kw):
+    """``session`` (a phase's session function) as a reference: its keys
+    returned as their digest."""
+    def reference(dev, times: dict) -> dict:
+        out = session(dev, times, **kw)
+        return {**out, "keys": _tree_digest(out["keys"])}
+    return reference
+
+
+# phase 13's circuits, in two references of about equal time
+CIRCUIT_HALVES = (("sign", "step", "max"),
+                  ("min", "goldschmidt_division", "evaluate_positive_domain"))
+# each CPU reference session and the outputs the card's are held to, in the
+# order the worker processes take them: the longest, then phases 21-22's
+# (read in their phases, before the others), then the rest longest first
+CPU_REFERENCES = {"wide boot": ("keys", "ct", "boot", "dec"),
                   "blindrot": ("keys", "test_poly", "ct", "out", "got"),
-                  "multiparty": ("keys", "cts", "bct", "out", "dec")}
+                  "rgsw": ("sk", "cts", "rg", "outs", "dec"),
+                  "multiparty": ("keys", "cts", "bct", "out", "dec"),
+                  "circuits 2": ("keys", "out"), "circuits 1": ("keys", "out"),
+                  "boot": ("keys", "ct", "boot", "meta", "dec", "dec_meta"),
+                  "matrix": ("keys", "cts", "outs", "dec"), "wide step": ("outs",),
+                  "bgv": ("keys", "cts", "outs", "dec"), "ci": ("keys", "cts", "outs", "dec")}
+# the references that take the card's inputs (``CPUReferences.submit``)
+SHIPPED_REFERENCES = {"ring switch": ()}
+# phases 9, 11-13, 15, 16 and 20, held to their references after phase 22:
+# (phase, the tag of its lines, its references)
+HELD_PHASES = ((9, "boot", ("boot",)), (11, "wide step", ("wide step",)),
+               (12, "wide boot", ("wide boot",)), (13, "circuits", ("circuits 1", "circuits 2")),
+               (15, "matrix", ("matrix",)), (16, "ci", ("ci",)), (20, "bgv", ("bgv",)))
+# the torch threads of a worker process and of the main process while
+# they run: on an 8-core host 3 workers x 2 + 2 threads keep the cores busy
+# and not oversubscribed (the card's phases drive the card from one host
+# thread; an idle torch thread pool spins on the cores it holds)
+CPU_WORKER_THREADS, MAIN_THREADS, MAX_CPU_WORKERS = 2, 2, 3
 
 
-def _cpu_reference(name: str) -> bytes:
-    """Session ``name`` of phases 21-22 on the CPU (the same calls, the same
-    generator seeds as on the card), pickled with its time in s.  Each
-    session makes its own inputs from its seeds, so it runs in a worker
-    process beside the card's phases and is read when its phase compares."""
-    torch.set_num_threads(2)  # the other cores stay with the card's phases
-    fn = {"rgsw": rgsw_session, "blindrot": blindrot_session,
-          "multiparty": multiparty_session}[name]
+def ring_switch_reference(dev, times: dict, s: dict) -> dict:
+    """Phase 17's switches, expand / pack and split / merge on ``dev`` from
+    the card's inputs and keys ``s`` (``ring_switch_cpu`` holds each to the
+    card's output)."""
+    times.update(ring_switch_cpu(s))
+    return {}
+
+
+def _cpu_reference(name: str, inputs: bytes = b"") -> bytes:
+    """Session ``name`` (of phases 9, 11-13, 15-17 and 20-22) on the CPU
+    (the same calls, the same generator seeds as on the card; phase 17's
+    on the card's inputs, pickled in ``inputs``), pickled with its times
+    (ms by stage) and its time in s.  It runs in a worker process beside
+    the card's phases and is read when its phase compares."""
+    torch.set_num_threads(CPU_WORKER_THREADS)  # the other cores stay with the card's phases
+    fn = {"wide boot": wide_boot_reference, "boot": boot_reference,
+          "circuits 1": _keys_digested(wide_circuits, names=CIRCUIT_HALVES[0]),
+          "circuits 2": _keys_digested(wide_circuits, names=CIRCUIT_HALVES[1]),
+          "rgsw": rgsw_session, "blindrot": blindrot_session,
+          "multiparty": multiparty_session, "wide step": wide_step_reference,
+          "matrix": _keys_digested(matrix_session), "ci": _keys_digested(ci_session),
+          "bgv": _keys_digested(bgv_session), "ring switch": ring_switch_reference}[name]
+    times: dict = {}
     t0 = time.perf_counter()
-    out = fn(torch.device("cpu"), {})
-    return pickle.dumps({**{k: out[k] for k in CPU_REFERENCES[name]},
+    out = fn(torch.device("cpu"), times, *([pickle.loads(inputs)] if inputs else []))
+    what = {**CPU_REFERENCES, **SHIPPED_REFERENCES}[name]
+    return pickle.dumps({**{k: out[k] for k in what}, "times": times,
                          "seconds": time.perf_counter() - t0})
 
 
-def start_cpu_references():
-    """One spawned worker process running phases 21-22's CPU references in
-    turn: (the pool, {name: its pending result}).  The caller terminates the
-    pool when done."""
-    pool = multiprocessing.get_context("spawn").Pool(1)
-    return pool, {name: pool.apply_async(_cpu_reference, (name,)) for name in CPU_REFERENCES}
+class CPUReferences:
+    """The CPU references in a pool of spawned worker processes, one for
+    each two cores this process may use beyond ``MAIN_THREADS`` (at most
+    ``MAX_CPU_WORKERS``, at least one).  Those made from seeds
+    (``CPU_REFERENCES``) start at once; ``submit`` adds one that takes the
+    card's inputs; ``get`` waits for one and unpickles it."""
+
+    def __init__(self):
+        import os
+        cores = len(os.sched_getaffinity(0))
+        self.workers = max(1, min(MAX_CPU_WORKERS,
+                                  (cores - MAIN_THREADS) // CPU_WORKER_THREADS))
+        self.pool = multiprocessing.get_context("spawn").Pool(self.workers)
+        self.pending = {name: self.pool.apply_async(_cpu_reference, (name,))
+                        for name in CPU_REFERENCES}
+
+    def submit(self, name: str, inputs) -> None:
+        """Reference ``name`` on ``inputs`` (moved to the CPU and pickled)."""
+        self.pending[name] = self.pool.apply_async(
+            _cpu_reference, (name, pickle.dumps(_move(inputs, "cpu"))))
+
+    def get(self, name: str) -> dict:
+        return pickle.loads(self.pending[name].get())
+
+    def close(self) -> None:
+        self.pool.terminate()
+        self.pool.join()
+
+
+def hold_to_cpu_references(to_hold: dict, refs: CPUReferences, clock: PhaseClock) -> None:
+    """The outputs on the card of the phases in ``HELD_PHASES`` (``to_hold``:
+    the keys' digests, the inputs, outputs and decodings of their cold
+    passes) against the same sessions on the CPU (``refs``), bit for bit;
+    the wait counts to each phase."""
+    print(f"phase references: {refs.workers} worker processes x {CPU_WORKER_THREADS} torch "
+          f"threads, the main process {MAIN_THREADS}")
+    for phase, tag, names in HELD_PHASES:
+        card = to_hold[tag]
+        cpus = [refs.get(name) for name in names]
+        what = CPU_REFERENCES[names[0]]
+        for k in what:
+            # phase 13's references split the circuits between them
+            cpu = {n: v for c in cpus for n, v in c[k].items()} if k == "out" else cpus[0][k]
+            for c in cpus[1:]:
+                assert k == "out" or c[k] == cpu, f"phase {phase} {k}: the references differ"
+            assert _same(card[k], cpu), f"phase {phase} {k}: card != CPU"
+        stages = "; ".join(", ".join(f"{k} {v / 1e3:.1f} s" for k, v in c["times"].items())
+                           for c in cpus)
+        print(f"phase {tag}: card == CPU (the same calls, the same generator seeds, the plain "
+              f"NTT) for {', '.join(what)}, limb for limb and decoded; CPU reference "
+              f"{sum(c['seconds'] for c in cpus):.1f} s in worker processes: {stages}")
+        clock.done(phase)
+    c = refs.get("ring switch")  # ring_switch_cpu's checks ran in the worker
+    print("phase ring switch: card == CPU (the card's inputs and keys, the plain NTT) for "
+          "switch_up, switch_down, expand, pack, split, merge and the monomials; CPU reference "
+          f"{c['seconds']:.1f} s in a worker process: "
+          + ", ".join(f"{k} {v / 1e3:.2f} s" for k, v in c["times"].items()))
+    clock.done(17)
 
 
 def rgsw_multiparty_phases(dev, smi: str, rng, int32_ops_per_s: float, clock: PhaseClock,
-                           refs: dict) -> dict:
+                           refs: CPUReferences) -> dict:
     """Phases 21-22 (see the module's docstring), held to the CPU references
-    ``refs`` (``start_cpu_references``); returns what the kernels line
+    ``refs``; returns what the kernels line
     reports of B4 on these paths and B4's loss by shape over them."""
     from matrix_fhe_tpu_torch.schemes import ckks
     seen: dict = {}       # B4's calls by (direction, shape, moduli), phases 21-22
@@ -2967,7 +3126,7 @@ def rgsw_multiparty_phases(dev, smi: str, rng, int32_ops_per_s: float, clock: Ph
             assert mean_bits > floor, f"phase 21 {k}: below the floor"
         else:
             assert st.min_precision >= floor, f"phase 21 {k}: below the floor"
-    cr = pickle.loads(refs["rgsw"].get())
+    cr = refs.get("rgsw")
     for k in ("sk", "cts", "rg", "outs"):
         assert _same(r[k], cr[k]), f"phase 21 {k}: card != CPU"
     for k in RGSW_BOUNDS:
@@ -3001,7 +3160,7 @@ def rgsw_multiparty_phases(dev, smi: str, rng, int32_ops_per_s: float, clock: Ph
               f"{BR_BOUND}: tests/test_blindrot.py); {st['product']} external products, "
               f"{st['auto']} automorphisms")
         assert err < BR_BOUND, f"phase 21 blind rotation slot {i}: |error| {err}"
-    cb = pickle.loads(refs["blindrot"].get())
+    cb = refs.get("blindrot")
     for k in ("keys", "test_poly", "ct", "out", "got"):
         assert _same(b[k], cb[k]), f"phase 21 blind rotation {k}: card != CPU"
     print(f"phase blindrot: card == CPU (the same calls, the same generator seeds, the plain "
@@ -3053,7 +3212,7 @@ def rgsw_multiparty_phases(dev, smi: str, rng, int32_ops_per_s: float, clock: Ph
     assert m["out"]["refresh"][1].level == p.max_level
     print(f"phase multiparty: BGV refresh level 0 -> {m['bparams'].max_level}: decoded == the "
           f"input mod T; CKKS refresh level 0 -> {p.max_level}")
-    cm = pickle.loads(refs["multiparty"].get())
+    cm = refs.get("multiparty")
     for k in ("keys", "cts", "bct", "out"):
         assert _same(m[k], cm[k]), f"phase 22 {k}: card != CPU"
     for k in m["dec"]:
@@ -3089,16 +3248,16 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
         return 1
-    pool, refs = start_cpu_references()
+    refs = CPUReferences()
+    torch.set_num_threads(MAIN_THREADS)
     try:
         return run(refs)
     finally:
-        pool.terminate()
-        pool.join()
+        refs.close()
 
 
-def run(refs: dict) -> int:
-    """Phases 1-22 on the card; ``refs``: phases 21-22's CPU references."""
+def run(refs: CPUReferences) -> int:
+    """Phases 1-22 on the card; ``refs``: the CPU references."""
     from matrix_fhe_tpu_torch.fast import fckks, fring
     from matrix_fhe_tpu_torch.ops import ntt_cuda, ntt_plain, ntt_w22
 
@@ -3556,37 +3715,26 @@ def run(refs: dict) -> int:
     for d, shape, c, err, ms in shape_rows:
         print(f"phase boot:   {d} {str(list(shape)):17s} C={c} device time queued {ms:.4f} ms")
 
-    # the same bootstrap on the CPU, with the card's keys, through the plain NTT
-    cpu_bp = btp.Parameters(fboot.FAST_N14, device="cpu")
-    cpu_times: dict = {}
-    cpu_bts = _timed(cpu_times, "make_fast_bootstrapper", torch.device("cpu"),
-                     lambda: fboot.make_fast_bootstrapper(cpu_bp, _move(bevk, "cpu")))
-    cpu_ct = _move(boot["ct"], "cpu")
-    cpu_out = _timed(cpu_times, "bootstrap", torch.device("cpu"), lambda: cpu_bts.bootstrap(cpu_ct))
-    cpu_meta = _timed(cpu_times, "evaluate(iterations=2)", torch.device("cpu"),
-                      lambda: cpu_bts.evaluate(cpu_ct, iterations=2))
-    assert _same(out_b, cpu_out), "bootstrap: card != CPU"
-    assert _same(meta, cpu_meta), "evaluate(iterations=2): card != CPU"
-    cpu_sk = _move(bsk, "cpu")
-    for what, c, want in (("bootstrap", cpu_out, boot["dec"]), ("evaluate", cpu_meta,
-                                                                boot["dec_meta"])):
-        assert np.array_equal(boot_decode(cpu_bts, cpu_sk, c), want), \
-            f"{what}: decoded values, card != CPU"
-    print(f"phase boot: card == CPU (the card's keys, the plain NTT) for bootstrap and "
-          f"evaluate(iterations=2), limb for limb and decoded; CPU reference "
-          + ", ".join(f"{k} {v / 1e3:.1f} s" for k, v in cpu_times.items()))
+    # held to the same session on the CPU (a worker process, the plain NTT) after phase 22
+    to_hold = {"boot": {"keys": _tree_digest((bsk, bevk)),
+                     **{k: boot[k] for k in CPU_REFERENCES["boot"] if k != "keys"}}}
     boot_counts = boot["counts"]
-    del cpu_bts, cpu_out, cpu_meta, boot, bwarm
+    del boot, bwarm
 
     clock.done(9)
     b4 = wide_phases(dev, smi, rng, sms, int32_ops_per_s, clock, b4_calls, b4_launches)
+    to_hold.update(b4.pop("to_hold"))
     clock.done(13)
     fork = matrix_phases(dev, smi, rng, int32_ops_per_s, clock)
+    to_hold.update(fork.pop("to_hold"))
     clock.done(16)
-    rings = ring_phases(dev, smi, rng, int32_ops_per_s, clock, b4.pop("wide_boot"),
+    rings = ring_phases(dev, smi, rng, int32_ops_per_s, clock, refs, b4.pop("wide_boot"),
                         fork.pop("ci_session"))
+    to_hold.update(rings.pop("to_hold"))
     clock.done(20)
     rgsw_mp = rgsw_multiparty_phases(dev, smi, rng, int32_ops_per_s, clock, refs)
+    clock.done(22)
+    hold_to_cpu_references(to_hold, refs, clock)
     assert "jax" not in sys.modules
     loss = b4["loss"] + fork["ci_loss"] + rings["loss"] + rings["ci_loss"] + rgsw_mp["loss"]
     print(f"phase b4 loss: B4 over phases 8-13 and 16-22: {len(loss)} shapes, "

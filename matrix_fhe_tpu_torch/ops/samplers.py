@@ -64,15 +64,21 @@ def uniform_poly(gen: torch.Generator, ring: Ring, batch: tuple[int, ...] = ()
     """Uniform in [0, q_i) per limb, exact: masked words, each one >= q_i
     drawn again (only those) until none is left."""
     shape = batch + (ring.num_limbs, ring.n)
-    q = torch.tensor(ring.moduli_tuple, dtype=torch.int64,
-                     device=gen.device)[:, None].expand(shape)
+    q = torch.tensor(ring.moduli_tuple, dtype=torch.int64, device=gen.device)
     mask = torch.tensor([(1 << m.bit_length()) - 1 for m in ring.moduli_tuple],
-                        dtype=torch.int64, device=gen.device)[:, None].expand(shape)
-    x = _bits(gen, shape) & mask
-    bad = x >= q
-    while bool(bad.any()):
-        x[bad] = _bits(gen, (int(bad.sum()),)) & mask[bad]
-        bad = x >= q
+                        dtype=torch.int64, device=gen.device)
+    x = _bits(gen, shape) & mask[:, None]
+    # the rejected words by flat position, ascending (a boolean mask's
+    # order), with their moduli and masks: each round redraws and tests
+    # only those, so it costs what is left, not the whole polynomial
+    pos = torch.nonzero((x >= q[:, None]).view(-1)).view(-1)
+    limb = torch.div(pos, ring.n, rounding_mode="floor") % ring.num_limbs
+    q, mask = q[limb], mask[limb]
+    flat = x.view(-1)
+    while pos.numel():
+        flat[pos] = redrawn = _bits(gen, (pos.numel(),)) & mask
+        left = torch.nonzero(redrawn >= q).view(-1)
+        pos, q, mask = pos[left], q[left], mask[left]
     return x.to(ring.device)
 
 

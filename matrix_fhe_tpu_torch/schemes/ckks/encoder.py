@@ -125,7 +125,17 @@ class Encoder:
         re, im = w if isinstance(w, tuple) else (list(np.real(w)), list(np.imag(w)))
         return re if self._ci else re + im
 
-    def _coeffs(self, values, scale: Fraction) -> list[int]:
+    def _rounded(self, w, sf: float):
+        """round(x * sf) of each real of ``w`` (a complex array): int64 words
+        when all fit, else Python integers (np.rint rounds half to even,
+        as round does)."""
+        re = np.real(w) if self._ci else np.concatenate([np.real(w), np.imag(w)])
+        v = np.rint(re * sf)
+        if np.all(np.abs(v) < 2.0 ** 63):
+            return v.astype(np.int64)
+        return [round(x * sf) for x in self._reals(w)]
+
+    def _coeffs(self, values, scale: Fraction):
         """The rounded integer coefficients of ``values`` at ``scale``."""
         vals = self._slots(values)
         if scale > (1 << 50):
@@ -136,11 +146,15 @@ class Encoder:
             sd = Decimal(scale.numerator) / Decimal(scale.denominator)
             return [int((x * sd).to_integral_value(rounding="ROUND_HALF_EVEN"))
                     for x in self._reals(w)]
-        sf = float(scale)
-        return [round(x * sf) for x in self._reals(self.special_ifft(vals))]
+        return self._rounded(self.special_ifft(vals), float(scale))
 
-    def _limbs(self, coeffs: list[int], moduli) -> torch.Tensor:
-        limbs = np.array([[c % q for c in coeffs] for q in moduli], dtype=np.int64)
+    def _limbs(self, coeffs, moduli) -> torch.Tensor:
+        """The residues of ``coeffs`` (int64 words or Python integers) mod
+        each modulus, [len(moduli), N]."""
+        if isinstance(coeffs, np.ndarray):
+            limbs = np.stack([coeffs % q for q in moduli]).astype(np.int64)
+        else:
+            limbs = np.array([[c % q for c in coeffs] for q in moduli], dtype=np.int64)
         return torch.from_numpy(limbs).to(self.params.device)
 
     def encode(self, values, level: int | None = None, scale=None,
@@ -162,8 +176,7 @@ class Encoder:
         (schemes/ckks/encoder.go:193 Embed with a ringqp output)."""
         params = self.params
         scale = Fraction(params.default_scale if scale is None else scale)
-        sf = float(scale)
-        coeffs = [round(x * sf) for x in self._reals(self.special_ifft(self._slots(values)))]
+        coeffs = self._rounded(self.special_ifft(self._slots(values)), float(scale))
         rq = params.ring_q.at_level(level_q)
         ptq = rq.mform(rq.ntt(self._limbs(coeffs, params.q[: level_q + 1])))
         ptp = None

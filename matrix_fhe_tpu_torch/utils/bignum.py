@@ -12,6 +12,7 @@ circuits) and touches no tensor.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from decimal import Decimal, getcontext, localcontext
 
@@ -38,12 +39,19 @@ def _atan_inv(n: int, digits: int) -> Decimal:
     return +acc
 
 
-def pi(digits: int = DEFAULT_DIGITS) -> Decimal:
-    """Machin's formula: pi = 16 atan(1/5) - 4 atan(1/239)."""
+@functools.lru_cache(maxsize=None)
+def _machin(digits: int) -> Decimal:
+    """pi at ``digits`` + 10 digits by Machin's formula, computed once per
+    precision (``cos`` and ``sin`` call ``pi`` at every argument)."""
     with localcontext() as ctx:
         ctx.prec = digits + 10
-        p = 16 * _atan_inv(5, digits + 10) - 4 * _atan_inv(239, digits + 10)
-    return +p
+        return 16 * _atan_inv(5, digits + 10) - 4 * _atan_inv(239, digits + 10)
+
+
+def pi(digits: int = DEFAULT_DIGITS) -> Decimal:
+    """Machin's formula: pi = 16 atan(1/5) - 4 atan(1/239), rounded to the
+    caller's context."""
+    return +_machin(digits)
 
 
 def cos(x: Decimal, digits: int | None = None) -> Decimal:
