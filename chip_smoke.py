@@ -98,7 +98,7 @@ Then bootstrapping, the third main path:
    device time; and the same session on the CPU from the same seeds (a
    worker process, the plain NTT): its keys equal to the card's (by
    digest), its input, bootstrap and evaluate equal to the card's limb for
-   limb and in the decoded values (checked after phase 22).
+   limb and in the decoded values (checked after phase 25).
 
 Then the wide path (41-61-bit primes, 64-bit words) and kernel B4, the NTT
 of 64-bit words (csrc/ntt64.cu), which phases 8 and 9 now run too (every
@@ -130,7 +130,7 @@ plain NTT on the CPU, and its launches there are printed):
     3 more), decrypt + decode; B4 and B1 launches a bootstrap, peak device
     memory, the stage-by-stage table, the same session on the CPU from the
     same seeds (a worker process) with keys, input and bootstrap equal to
-    the card's limb for limb and decoded (checked after phase 22), and the
+    the card's limb for limb and decoded (checked after phase 25), and the
     decoded precision held to the JAX package's criterion for this chain
     (tests/test_wboot.py: mean >= 15 bits, min >= 5);
 13. the comparison and inverse circuits on the wide evaluator at logN 14
@@ -139,7 +139,7 @@ plain NTT on the CPU, and its launches there are printed):
     min, goldschmidt_division and evaluate_positive_domain on 8192 slots
     drawn as that test draws them, within its bounds, each equal to the
     same circuit on the CPU from the same seeds, keys included (a worker
-    process; checked after phase 22).  Then B4 by launch shape
+    process; checked after phase 25).  Then B4 by launch shape
     over the cold passes of phases 8, 9 and 11-13 (every call on the card
     recorded with its shape and counted, merged over moduli): launches,
     device time queued, bound and loss, launches x (device - bound), with
@@ -266,9 +266,39 @@ generator seeds, bit for bit):
     peak device memory.
 Then B4 against its plain version at every shape phases 21-22 gave it
 (N = 2^9, 2^10, 2^14), its loss table over them, and its summed device
-time against the cold passes' wall time.  Before the kernels line, one
-"phase time: <n> <seconds>" line a phase (a phase's continuation, the B4
-checks after its group, counts to it; the builds to phase 2).
+time against the cold passes' wall time.
+
+Then the user-facing surface, on B4 (its standard mode at 2^5-2^14 and its
+CI mode at 2^6), each held to the same calls on the CPU from the same seeds
+(a worker process, the plain NTT):
+
+23. the flagship step (flagship.py) at PN14QP438, none cut: logN 14, 9 q-
+    and 1 p-limb (55 + 45x8 and 61 bits), scale 2^45: build_flagship's two
+    parts timed (the draws on a CPU generator; the keys, encode and
+    encrypt), build_flagship itself giving the same objects, then
+    make_step's rescale(mul_relin) for 3 requests and the median of 10
+    more (host clock around work ending in a synchronize), each equal to
+    the first; B4 launches a step, peak device memory, the decoded min
+    precision held to tests/test_ckks.py:90-97's 20 bits; the step's
+    output and decoding equal to the CPU's;
+24. serialization (utils/serialization.py) at that width: phase 23's
+    parameters, secret and relinearization keys and two ciphertexts, 8
+    galois keys (rotations 1-8) and an RGSW(3), each saved to a file in a
+    temporary directory under the build directory and loaded back to the
+    card (bytes, save and load times, MB/s); the reloaded objects equal
+    the saved ones and run the step bit-identically; every blob's sha256
+    equals the CPU worker's blob of the same object; and the card's
+    encoder reproduces tests/test_serialization.py:105's plaintext digest;
+25. the 14 examples (matrix_fhe_tpu_torch/examples, the JAX scripts'
+    circuits at their own sizes, logN 5-8), each main(device="cuda")
+    passing every assert of its script, printing its wall time and B4
+    launches, and returning what the same call on the CPU returns: the
+    decrypted words bit for bit and the decoded values.
+Then B4 against its plain version at every shape phases 23-25 gave it
+(on the CI ring with one kernel a call), and its loss table over them.
+Before the kernels line, one "phase time: <n> <seconds>" line a phase (a
+phase's continuation, the B4 checks after its group, counts to it; the
+builds to phase 2).
 
 Prints a JSON line of per-kernel results, one entry per kernel entry point:
 launches on its path (phase 4 for ntt_fwd/ntt_bwd, 6 for the chain, 7 for
@@ -276,10 +306,10 @@ w22; counts zeroed just before each run and read just after; ntt_fwd/ntt_bwd
 also give launches_by_path: phase 4's, phase 8's cold pass, and phase 9's
 bootstrap and evaluate apart; ntt64_fwd/ntt64_bwd, kernel B4, phase 11's
 three PN14QP438 requests, with launches_by_path over phases 8, 9, 11, 12,
-13 and 17-22; ntt3n_fwd/ntt3n_bwd, kernel B5, phase 15's operations, with
+13 and 17-25; ntt3n_fwd/ntt3n_bwd, kernel B5, phase 15's operations, with
 launches_by_path over its keygen and each operation; ntt64_ci_fwd /
-ntt64_ci_bwd, B4 on the CI ring, phase 16's session, by stage, and phase
-18's CI side), max
+ntt64_ci_bwd, B4 on the CI ring, phase 16's session, by stage, phase
+18's CI side and phase 25's scheme switching), max
 |kernel - plain| (phases 3 and 9 for B1, 10 for B4, 14 for B5, 16 for B4
 on the CI ring), the kernel's and plain version's times (phase 3's shapes
 summed, one launch each, for ntt_fwd/ntt_bwd; the PN14QP438 step's shapes
@@ -295,26 +325,30 @@ PyTorch call computes a negacyclic NTT mod q, so library_ms is null.  Then, as i
 {"ok": true, "device": {...}}.  Any failed check raises and exits non-zero.
 The script imports no jax.
 
-The CPU references of phases 9, 11-13, 15, 16 and 20-22 (CPU_REFERENCES)
+The CPU references of phases 9, 11-13, 15, 16 and 20-25 (CPU_REFERENCES)
 are whole sessions rebuilt from their generator seeds, keys included, and
 phase 17's runs the same calls on the card's inputs and keys, pickled over
 (SHIPPED_REFERENCES).  They run in spawned worker processes started with
 the script (CPUReferences: one for each two cores beyond the main
 process's two, at most three), beside the card's phases, and are
-terminated when it ends.  Phases 21-22 read theirs in place; the others
-are checked after phase 22 (hold_to_cpu_references), and each one's wait
+terminated when it ends.  Phases 21-25 read theirs in place; the others
+are checked after phase 25 (hold_to_cpu_references), and each one's wait
 there counts to its phase.
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
+import importlib
+import io
 import json
 import multiprocessing
 import pickle
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import types
 
@@ -496,7 +530,17 @@ MP_BOUNDS = {"public key": 15, "galois key": 12, "relinearization key": 10, "key
 PHASE_NAMES = {"17": "ring switching and packing", "18": "bridge, the standard ring",
                "19": "packed and sparse bootstrap", "20": "BGV and BFV",
                "21a": "RGSW external products", "21b": "blind rotation",
-               "22": "multiparty protocols"}
+               "22": "multiparty protocols", "23": "the flagship step",
+               "24": "serialization", "25": "the examples"}
+# phases 23-25: the flagship step at PN14QP438 (flagship.py; logN, q-limbs, p-limbs), none
+# cut; tests/test_ckks.py:90-97's 20 bits; the step's requests and the median of more
+FLAGSHIP = (14, 9, 1)
+FLAGSHIP_FLOOR = 20
+FLAGSHIP_REQUESTS, FLAGSHIP_REPEATS = 3, 10
+# tests/test_serialization.py:105's plaintext: its parameters and its digest
+WIRE_LITERAL = dict(logn=6, logq=(45, 45), logp=(45,), log_default_scale=40)
+WIRE_PT_SHA256 = "c41d1ceaadc10de792cab7744df18b2415947e379c058c3f0a8f3f1374af7b81"
+EXAMPLE_LOGNS = (5, 6, 7, 8)  # the examples' rings (B4's CI mode at 2^6)
 
 
 class PhaseClock:
@@ -1511,7 +1555,7 @@ def wide_phases(dev, smi: str, rng, sms: int, int32_ops_per_s: float, clock: Pha
         print(f"phase wide boot: stage {stage:13s} level {ct_s.level:2d} scale 2^"
               f"{np.log2(float(ct_s.scale)):6.2f} | own mean {own[0]:8.4f} min {own[1]:8.4f} "
               f"bits | total mean {total[0]:8.4f} min {total[1]:8.4f} bits | {note}")
-    # held to the same session on the CPU (a worker process, the plain NTT) after phase 22
+    # held to the same session on the CPU (a worker process, the plain NTT) after phase 25
     to_hold["wide boot"] = {"keys": _tree_digest((wsk, wevk)),
                          **{k: wboot[k] for k in CPU_REFERENCES["wide boot"] if k != "keys"}}
     assert floor_met, "wide bootstrap: decoded precision below the JAX package's criterion"
@@ -2478,7 +2522,7 @@ def ring_phases(dev, smi: str, rng, int32_ops_per_s: float, clock: PhaseClock,
                  "down": noise.noise_evaluation_key(hi, down.gadget, sk_hi.value.q, emb)}
     print(f"phase ring switch: key noise (log2 std, rlwe/noise.py) evk_up "
           f"{key_noise['up']:.4f} bits, evk_down {key_noise['down']:.4f} bits")
-    # held to the same calls on the CPU (a worker process) after phase 22
+    # held to the same calls on the CPU (a worker process) after phase 25
     ev = s["ev"]
     refs.submit("ring switch", {
         **{k: s[k] for k in RING_SWITCH_INPUTS},
@@ -2960,19 +3004,20 @@ def _keys_digested(session, **kw):
 CIRCUIT_HALVES = (("sign", "step", "max"),
                   ("min", "goldschmidt_division", "evaluate_positive_domain"))
 # each CPU reference session and the outputs the card's are held to, in the
-# order the worker processes take them: the longest, then phases 21-22's
+# order the worker processes take them: the longest, then phases 21-25's
 # (read in their phases, before the others), then the rest longest first
 CPU_REFERENCES = {"wide boot": ("keys", "ct", "boot", "dec"),
                   "blindrot": ("keys", "test_poly", "ct", "out", "got"),
                   "rgsw": ("sk", "cts", "rg", "outs", "dec"),
                   "multiparty": ("keys", "cts", "bct", "out", "dec"),
+                  "flagship": ("out", "dec", "blobs"), "examples": ("outs",),
                   "circuits 2": ("keys", "out"), "circuits 1": ("keys", "out"),
                   "boot": ("keys", "ct", "boot", "meta", "dec", "dec_meta"),
                   "matrix": ("keys", "cts", "outs", "dec"), "wide step": ("outs",),
                   "bgv": ("keys", "cts", "outs", "dec"), "ci": ("keys", "cts", "outs", "dec")}
 # the references that take the card's inputs (``CPUReferences.submit``)
 SHIPPED_REFERENCES = {"ring switch": ()}
-# phases 9, 11-13, 15, 16 and 20, held to their references after phase 22:
+# phases 9, 11-13, 15, 16 and 20, held to their references after phase 25:
 # (phase, the tag of its lines, its references)
 HELD_PHASES = ((9, "boot", ("boot",)), (11, "wide step", ("wide step",)),
                (12, "wide boot", ("wide boot",)), (13, "circuits", ("circuits 1", "circuits 2")),
@@ -2993,7 +3038,7 @@ def ring_switch_reference(dev, times: dict, s: dict) -> dict:
 
 
 def _cpu_reference(name: str, inputs: bytes = b"") -> bytes:
-    """Session ``name`` (of phases 9, 11-13, 15-17 and 20-22) on the CPU
+    """Session ``name`` (of phases 9, 11-13, 15-17 and 20-25) on the CPU
     (the same calls, the same generator seeds as on the card; phase 17's
     on the card's inputs, pickled in ``inputs``), pickled with its times
     (ms by stage) and its time in s.  It runs in a worker process beside
@@ -3005,7 +3050,8 @@ def _cpu_reference(name: str, inputs: bytes = b"") -> bytes:
           "rgsw": rgsw_session, "blindrot": blindrot_session,
           "multiparty": multiparty_session, "wide step": wide_step_reference,
           "matrix": _keys_digested(matrix_session), "ci": _keys_digested(ci_session),
-          "bgv": _keys_digested(bgv_session), "ring switch": ring_switch_reference}[name]
+          "bgv": _keys_digested(bgv_session), "ring switch": ring_switch_reference,
+          "flagship": flagship_reference, "examples": examples_reference}[name]
     times: dict = {}
     t0 = time.perf_counter()
     out = fn(torch.device("cpu"), times, *([pickle.loads(inputs)] if inputs else []))
@@ -3243,6 +3289,234 @@ def rgsw_multiparty_phases(dev, smi: str, rng, int32_ops_per_s: float, clock: Ph
             "by_path": {f"{PHASE_NAMES[k]} (phase {k})": v for k, v in counts.items()}}
 
 
+# -- phases 23-25: the flagship step, serialization, the examples -----------------------------
+
+def flagship_session(dev, times: dict) -> dict:
+    """Phase 23's objects on ``dev``: flagship.build_flagship(*FLAGSHIP, seed=SEED) in its
+    two parts (the draws on a CPU generator, then the keys, encode and encrypt) and one
+    step; then phase 24's 8 galois keys (rotations 1-8) and an RGSW(3), each timed."""
+    from matrix_fhe_tpu_torch import flagship, rgsw
+    from matrix_fhe_tpu_torch.rlwe import decryptor, keys as K
+    from matrix_fhe_tpu_torch.schemes import ckks
+    params = _timed(times, "parameters (the rings' tables)", dev,
+                    lambda: flagship.flagship_parameters(*FLAGSHIP, device=dev))
+    s = _timed(times, "keygen draws (secret, relinearization rows, 2 encryptions)", dev,
+               lambda: flagship.sample_flagship(torch.Generator().manual_seed(SEED), params))
+    sk, rlk, ev, ct1, ct2 = _timed(times, "keygen + encode + encrypt, deterministic part", dev,
+                                   lambda: flagship.flagship_from_samples(params, s, SEED))
+    step = flagship.make_step(params, ev, ct1.metadata)
+    out = _timed(times, "step, first call", dev, lambda: step(*ct1.value, *ct2.value, rlk))
+    res = ev.rescale(ev.mul_relin(ct1, ct2))
+    assert _same(tuple(res.value), tuple(out)), "make_step != rescale(mul_relin)"
+    v1, v2 = flagship.flagship_vectors(params, SEED)
+    dec = ckks.Encoder(params).decode(decryptor.decrypt(params, sk, res))
+    gks = _timed(times, f"{len(SESSION_ROTATIONS)} galois keys (rotations 1-8)", dev,
+                 lambda: K.gen_galois_keys(_gen(2301), params, sk,
+                                           params.galois_elements(SESSION_ROTATIONS)))
+    rg = _timed(times, "RGSW(3)", dev, lambda: rgsw.encrypt_plaintext(_gen(2302), params, sk, 3))
+    objs = {"params": params, "sk": sk, "rlk": rlk, "ct1": ct1, "ct2": ct2,
+            **{f"galois key {g}": k for g, k in gks.items()}, "rgsw": rg}
+    return {"objs": objs, "step": step, "out": tuple(out), "dec": dec, "want": v1 * v2}
+
+
+def flagship_reference(dev, times: dict) -> dict:
+    """Phases 23-24 on ``dev`` from the seeds: the step's output, its decoding and the
+    sha256 of each object's blob (utils/serialization.py)."""
+    from matrix_fhe_tpu_torch.utils import serialization as ser
+    f = flagship_session(dev, times)
+    return {"out": f["out"], "dec": f["dec"],
+            "blobs": {k: hashlib.sha256(ser.save(o)).hexdigest() for k, o in f["objs"].items()}}
+
+
+def examples_reference(dev, times: dict) -> dict:
+    """The 14 examples' ``main(device=dev, seed=SEED)``, their prints kept out of the
+    output, each timed."""
+    from matrix_fhe_tpu_torch.examples import NAMES
+    outs = {}
+    for name in NAMES:
+        main_ = importlib.import_module(f"matrix_fhe_tpu_torch.examples.{name}").main
+        with contextlib.redirect_stdout(io.StringIO()):
+            outs[name] = _timed(times, name, dev, lambda: main_(device=dev, seed=SEED))
+    return {"outs": outs}
+
+
+def surface_phases(dev, smi: str, rng, int32_ops_per_s: float, clock: PhaseClock,
+                   refs: CPUReferences) -> dict:
+    """Phases 23-25 (see the module's docstring), held to the CPU references ``refs``;
+    returns what the kernels line reports of B4 on these paths and B4's loss by shape
+    over them."""
+    from matrix_fhe_tpu_torch import flagship
+    from matrix_fhe_tpu_torch.examples import NAMES
+    from matrix_fhe_tpu_torch.ops import ntt64_cuda, ntt_cuda
+    from matrix_fhe_tpu_torch.schemes import ckks
+    from matrix_fhe_tpu_torch.utils import serialization as ser
+    seen: dict = {}       # B4's calls by (direction, shape, moduli), phases 23-25
+    launches: dict = {}   # and its launches there, by phase
+    ci_seen: dict = {}
+    ci_launches: dict = {}
+    by_path: dict = {}
+
+    def recorded(phase, fn, ci_ring=False):
+        """fn() with B4's calls recorded and its launches counted (on the CI ring too
+        with ``ci_ring``): (output, launches on the standard ring)."""
+        def run():
+            return b4_shapes(fn, seen, launches.setdefault(phase, {}))
+        return _b4_counted(dev, lambda: _shapes_in(ntt64_cuda, run, ci_seen, CI_ENTRIES,
+                                                   ci_launches) if ci_ring else run())
+
+    # -- 23. the flagship step at PN14QP438 -----------------------------------------------------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    times: dict = {}
+    f, by_path["flagship setup, first step, 8 galois keys, RGSW (phases 23-24)"] = recorded(
+        "23", lambda: flagship_session(dev, times))
+    objs, step, out = f["objs"], f["step"], f["out"]
+    params, sk, rlk, ct1, ct2 = (objs[k] for k in ("params", "sk", "rlk", "ct1", "ct2"))
+    print(f"phase flagship: PN14QP438 at logN {params.log_n}: {len(params.q)} + {len(params.p)} "
+          f"primes ({', '.join(str(q.bit_length()) for q in params.q + params.p)} bits), scale "
+          f"2^{params.log_default_scale}, {params.max_slots} slots; none cut")
+    for name, ms in times.items():
+        print(f"phase flagship: {name:58s} {ms:10.3f} ms | {smi}")
+    again = flagship.build_flagship(*FLAGSHIP, seed=SEED, device=dev)
+    assert _same((again[1], again[2], again[4], again[5]), (sk, rlk, ct1, ct2)), \
+        "phase 23: build_flagship != its two parts"
+    del again
+    args = (*ct1.value, *ct2.value, rlk)
+    lat, steps = [], []
+    for r in range(FLAGSHIP_REQUESTS + FLAGSHIP_REPEATS):
+        torch.cuda.synchronize()
+        ntt64_cuda.fwd_launches = ntt64_cuda.bwd_launches = 0
+        t0 = time.perf_counter()
+        o = step(*args)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+        steps.append({"fwd": ntt64_cuda.fwd_launches, "bwd": ntt64_cuda.bwd_launches})
+        assert _same(tuple(o), out), f"phase 23 request {r}: != the first step"
+    peak = torch.cuda.max_memory_allocated()
+    assert all(c == steps[0] for c in steps) and min(steps[0].values()) > 0, steps
+    by_path["flagship step (phase 23, a request)"] = steps[0]
+    reps = lat[FLAGSHIP_REQUESTS:]
+    print(f"phase flagship: step rescale(mul_relin): requests "
+          f"{', '.join(f'{t:.3f}' for t in lat[:FLAGSHIP_REQUESTS])} ms; median of "
+          f"{len(reps)} more {statistics.median(reps):.3f} ms (min {min(reps):.3f}, max "
+          f"{max(reps):.3f}) | {smi}")
+    print(f"phase flagship: B4 launches a step {steps[0]}; peak device memory "
+          f"{(peak - held) / 2**20:.1f} MiB above the {held / 2**20:.1f} MiB the earlier phases "
+          f"hold | {smi}")
+    st = ckks.precision_stats(f["want"], f["dec"])
+    print(f"phase flagship: decoded min precision {st.min_precision:.4f} bits, mean "
+          f"{st.avg_precision:.4f} bits over {len(f['dec'])} slots (floor {FLAGSHIP_FLOOR}: "
+          f"tests/test_ckks.py:90-97)")
+    assert st.min_precision >= FLAGSHIP_FLOOR, "phase 23: below the floor"
+    cf = refs.get("flagship")
+    assert _same(out, cf["out"]) and np.array_equal(f["dec"], cf["dec"]), "phase 23: card != CPU"
+    print(f"phase flagship: card == CPU (build_flagship from the same seed, the same step, the "
+          f"plain NTT) for the step's output and its decoding (CPU reference "
+          f"{cf['seconds']:.2f} s in a worker process: "
+          + ", ".join(f"{k} {v / 1e3:.2f} s" for k, v in cf["times"].items()) + ")")
+    clock.done(23)
+
+    # -- 24. serialization at full width ----------------------------------------------------
+    ntt_cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    rows, loaded = [], {}
+    with tempfile.TemporaryDirectory(dir=ntt_cuda.BUILD_DIR) as tmp:
+        for name, obj in objs.items():
+            path = f"{tmp}/{name.replace(' ', '_')}.bin"
+            _sync(dev)
+            t0 = time.perf_counter()
+            with open(path, "wb") as fh:
+                nbytes = ser.save(obj, fh)
+            t1 = time.perf_counter()
+            with open(path, "rb") as fh:
+                data = fh.read()
+            t2 = time.perf_counter()
+            back = ser.load(data, device=dev)
+            _sync(dev)
+            t3 = time.perf_counter()
+            assert len(data) == nbytes
+            loaded[name] = back
+            rows.append((name, nbytes, (t1 - t0) * 1e3, (t3 - t2) * 1e3,
+                         hashlib.sha256(data).hexdigest()))
+    saved_b = sum(r[1] for r in rows)
+    save_ms, load_ms = sum(r[2] for r in rows), sum(r[3] for r in rows)
+    for name, nbytes, s_ms, l_ms, _ in rows:
+        print(f"phase serialization: {name:16s} {nbytes:11d} B, save {s_ms:9.3f} ms, load to "
+              f"the card {l_ms:9.3f} ms{' (the rings regenerated)' if name == 'params' else ''}")
+    print(f"phase serialization: {len(rows)} objects, {saved_b} B: save (card -> host -> file) "
+          f"{save_ms:.3f} ms = {saved_b / 1e6 / (save_ms / 1e3):.1f} MB/s, load (file bytes -> "
+          f"card) {load_ms:.3f} ms = {saved_b / 1e6 / (load_ms / 1e3):.1f} MB/s | {smi}")
+    lp = loaded["params"]
+    assert (lp.q, lp.p, lp.n) == (params.q, params.p, params.n)
+    assert all(torch.equal(getattr(lp.ring_q, t), getattr(params.ring_q, t)) for t in
+               ("psi2", "ipsi2")), "phase 24: the reloaded rings' tables differ"
+    for name, obj in objs.items():
+        assert name == "params" or _same(loaded[name], obj), f"phase 24 {name}: reloaded != saved"
+    lct1, lct2 = loaded["ct1"], loaded["ct2"]
+    o, by_path["the reloaded objects' step (phase 24)"] = recorded("24", lambda: flagship.make_step(
+        lp, None, lct1.metadata)(*lct1.value, *lct2.value, loaded["rlk"]))
+    assert _same(tuple(o), out), "phase 24: the reloaded objects' step != phase 23's"
+    blobs = {name: digest for name, _, _, _, digest in rows}
+    assert blobs == cf["blobs"], "phase 24: a blob on the card != the CPU's"
+    wp = ckks.new_parameters(ckks.CKKSParametersLiteral(**WIRE_LITERAL), dev)
+    v = np.arange(wp.max_slots) / wp.max_slots + 0j
+    assert hashlib.sha256(ser.save(ckks.Encoder(wp).encode(v))).hexdigest() == WIRE_PT_SHA256, \
+        "phase 24: the wire-format plaintext digest"
+    print(f"phase serialization: the reloaded params, keys and ciphertexts run the step "
+          f"bit-identically; every blob's sha256 == the CPU worker's blob of the same object; "
+          f"the card's encoder reproduces tests/test_serialization.py:105's plaintext digest")
+    del loaded, objs, f, step
+    clock.done(24)
+
+    # -- 25. the 14 examples on the card --------------------------------------------------
+    ce = refs.get("examples")
+    ex_ms = {}
+    for name in NAMES:
+        main_ = importlib.import_module(f"matrix_fhe_tpu_torch.examples.{name}").main
+        buf = io.StringIO()
+        _sync(dev)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res, c = recorded(name, lambda: main_(device=dev, seed=SEED),
+                              ci_ring=name == "ckks_scheme_switching")
+        _sync(dev)
+        ex_ms[name] = (time.perf_counter() - t0) * 1e3
+        assert min(c.values()) > 0, f"phase 25 {name}: B4 launched no time ({c})"
+        by_path[f"example {name} (phase 25)"] = c
+        for line in buf.getvalue().splitlines():
+            print(f"phase examples: {name}: {line}")
+        assert _same(res, ce["outs"][name]), f"phase 25 {name}: card != CPU"
+        print(f"phase examples: {name}: {ex_ms[name]:.1f} ms on the card (CPU reference "
+              f"{ce['times'][name] / 1e3:.2f} s), B4 launches {c}; every assert passed; card "
+              f"== CPU for the decrypted words and the decoded values | {smi}")
+    ci_by = {d: sum(n for (dd, *_), n in ci_launches.items() if dd == d) for d in ("fwd", "bwd")}
+    assert sum(ci_by.values()) > 0, f"phase 25: B4's CI mode launched no time ({ci_by})"
+    print(f"phase examples: all {len(NAMES)} in {sum(ex_ms.values()) / 1e3:.2f} s on the card; "
+          f"B4 on the CI ring (ckks_scheme_switching) {ci_by}")
+
+    # -- B4 at every shape phases 23-25 gave it --------------------------------------------
+    shape_rows = check_b4_shapes(seen, dev, rng)
+    for d, shape, c, err_, _ in shape_rows:
+        assert err_ == 0, f"B4 {d} {shape}: kernel != plain ({err_})"
+    ns = sorted({shape[-1] for _, shape, *_ in shape_rows})
+    print(f"phase b4: B4 at the {len(shape_rows)} shapes (direction, shape, moduli) of phases "
+          f"23-25, N = {ns}: kernel == plain at every one")
+    ci_rows = check_ci_shapes(ci_seen, dev, rng)
+    for d, shape, err_, _, names, _ in ci_rows:
+        assert err_ == 0, f"B4 on the CI ring {d} {shape}: kernel != plain ({err_})"
+        assert len(names) == 3 and all("ntt64" in k for k in names), (d, shape, names)
+    print(f"phase b4: B4 on the CI ring at the {len(ci_rows)} shapes of phase 25: kernel == "
+          f"plain, one kernel a call")
+    loss = [row for phase, counted in launches.items() for row in b4_loss(
+        seen, counted, dev, rng, int32_ops_per_s, smi,
+        f"phase {phase}, {PHASE_NAMES[phase]}" if phase in PHASE_NAMES else f"phase 25, {phase}")]
+    ci_loss = b4_loss(ci_seen, ci_launches, dev, rng, int32_ops_per_s, smi,
+                      "phase 25, CI ring", ci=True)
+    clock.done(25)
+    return {"shape_rows": shape_rows, "ci_rows": ci_rows, "loss": loss, "ci_loss": ci_loss,
+            "by_path": by_path, "ci_launches": ci_by}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -3257,7 +3531,7 @@ def main() -> int:
 
 
 def run(refs: CPUReferences) -> int:
-    """Phases 1-22 on the card; ``refs``: the CPU references."""
+    """Phases 1-25 on the card; ``refs``: the CPU references."""
     from matrix_fhe_tpu_torch.fast import fckks, fring
     from matrix_fhe_tpu_torch.ops import ntt_cuda, ntt_plain, ntt_w22
 
@@ -3277,7 +3551,8 @@ def run(refs: CPUReferences) -> int:
     from matrix_fhe_tpu_torch.ops import ntt3n_cuda
     built = ntt_cuda.build_all([(ntt_cuda.SOURCE, logn) for logn in PATH_LOGNS]
                                + [(ntt64_cuda.SOURCE, logn) for logn in sorted(
-                                   set(B4_SIZES) | set(RS_LOGNS) | {BR_RING[0], BR_LWE[0]})]
+                                   set(B4_SIZES) | set(RS_LOGNS) | set(EXAMPLE_LOGNS)
+                                   | {BR_RING[0], BR_LWE[0]})]
                                + [(ntt3n_cuda.SOURCE, ntt3n_cuda.BUILD_KEY)])
     print(f"phase build: built {len(built)} libraries, "
           f"{', '.join(ntt_cuda.library_path(logn, src).name for src, logn in built)}, in "
@@ -3715,7 +3990,7 @@ def run(refs: CPUReferences) -> int:
     for d, shape, c, err, ms in shape_rows:
         print(f"phase boot:   {d} {str(list(shape)):17s} C={c} device time queued {ms:.4f} ms")
 
-    # held to the same session on the CPU (a worker process, the plain NTT) after phase 22
+    # held to the same session on the CPU (a worker process, the plain NTT) after phase 25
     to_hold = {"boot": {"keys": _tree_digest((bsk, bevk)),
                      **{k: boot[k] for k in CPU_REFERENCES["boot"] if k != "keys"}}}
     boot_counts = boot["counts"]
@@ -3734,10 +4009,12 @@ def run(refs: CPUReferences) -> int:
     clock.done(20)
     rgsw_mp = rgsw_multiparty_phases(dev, smi, rng, int32_ops_per_s, clock, refs)
     clock.done(22)
+    surface = surface_phases(dev, smi, rng, int32_ops_per_s, clock, refs)
     hold_to_cpu_references(to_hold, refs, clock)
     assert "jax" not in sys.modules
-    loss = b4["loss"] + fork["ci_loss"] + rings["loss"] + rings["ci_loss"] + rgsw_mp["loss"]
-    print(f"phase b4 loss: B4 over phases 8-13 and 16-22: {len(loss)} shapes, "
+    loss = (b4["loss"] + fork["ci_loss"] + rings["loss"] + rings["ci_loss"] + rgsw_mp["loss"]
+            + surface["loss"] + surface["ci_loss"])
+    print(f"phase b4 loss: B4 over phases 8-13 and 16-25: {len(loss)} shapes, "
           f"{sum(r['launches'] for r in loss)} launches, loss launches x (device - bound) "
           f"{sum(r['loss_ms'] for r in loss):.4f} ms summed | {smi}")
     ntt_cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -3757,11 +4034,13 @@ def run(refs: CPUReferences) -> int:
                 b4_bkeys[d] + b4_bsession[d],
             **{k: v[d] for k, v in b4["by_path"].items()},
             **{k: v[d] for k, v in rings["by_path"].items()},
-            **{k: v[d] for k, v in rgsw_mp["by_path"].items()}}
+            **{k: v[d] for k, v in rgsw_mp["by_path"].items()},
+            **{k: v[d] for k, v in surface["by_path"].items()}}
         launches[f"ntt64_{d}"] = 3 * b4["by_path"]["wide step PN14QP438 (phase 11, a request)"][d]
         stats[f"ntt64_{d}"] = dict(b4["stats"][d], max_abs_err=max(
             [r[-1] for r in b4["size_rows"]] + [r[3] for r in b4["shape_rows"] + rings["shape_rows"]
-                                                + rgsw_mp["shape_rows"] if r[0] == d]))
+                                                + rgsw_mp["shape_rows"] + surface["shape_rows"]
+                                                if r[0] == d]))
         REPLACES[f"ntt64_{d}"] = B4_REPLACES[d]
     for d in ("fwd", "bwd"):
         by_path[f"ntt3n_{d}"] = {k: v[d] for k, v in fork["b5_by_path"].items()}
@@ -3771,9 +4050,12 @@ def run(refs: CPUReferences) -> int:
         by_path[f"ntt64_ci_{d}"] = {f"CKKS on the CI ring, {k} (phase 16)": v[d]
                                     for k, v in fork["ci_by_path"].items()}
         by_path[f"ntt64_ci_{d}"]["bridge, the CI side (phase 18)"] = rings["ci_launches"][d]
+        by_path[f"ntt64_ci_{d}"]["example ckks_scheme_switching, the CI side (phase 25)"] = \
+            surface["ci_launches"][d]
         launches[f"ntt64_ci_{d}"] = fork["ci_launches"][d]
         stats[f"ntt64_ci_{d}"] = dict(fork["ci_stats"][d], max_abs_err=max(
-            [fork["ci_stats"][d]["max_abs_err"]] + [r[2] for r in rings["ci_rows"] if r[0] == d]))
+            [fork["ci_stats"][d]["max_abs_err"]] + [r[2] for r in rings["ci_rows"] + surface["ci_rows"]
+                                                     if r[0] == d]))
         REPLACES[f"ntt64_ci_{d}"] = CI_REPLACES[d]
     kernels = []
     for d in ("fwd", "bwd", "chain_fwd", "chain_bwd", "w22_fwd", "w22_bwd", "ntt64_fwd",
@@ -3786,8 +4068,8 @@ def run(refs: CPUReferences) -> int:
             entry["launches_by_path"] = by_path[d]
         assert entry["launches"] > 0 and entry["max_abs_err"] == 0, entry
         kernels.append(entry)
-    clock.done(22)
-    for n in range(1, 23):
+    clock.done(25)
+    for n in range(1, 26):
         print(f"phase time: {n} {clock.times.get(n, 0.0):.3f}")
     print(f"phase time: all {sum(clock.times.values()):.3f}")
     print(json.dumps({"kernels": kernels}))

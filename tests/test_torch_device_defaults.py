@@ -8,7 +8,8 @@ from types import SimpleNamespace
 import pytest
 import torch
 
-from matrix_fhe_tpu_torch import carry, rlwe
+from matrix_fhe_tpu_torch import carry, flagship, rlwe
+from matrix_fhe_tpu_torch.examples import ckks_template
 from matrix_fhe_tpu_torch.multiparty import mpbgv, mpckks, protocols, threshold
 from matrix_fhe_tpu_torch.fast import fckks, fring, frns, wckks, wring, wrns
 from matrix_fhe_tpu_torch.ops import ntt_3n, ntt_cuda, ntt_w22, rings, rns_tools
@@ -17,7 +18,7 @@ from matrix_fhe_tpu_torch.rlwe import keys as K
 from matrix_fhe_tpu_torch.rlwe import params as rparams
 from matrix_fhe_tpu_torch.rlwe import ring_packing
 from matrix_fhe_tpu_torch.schemes import bgv, ckks, matrix_ckks
-from matrix_fhe_tpu_torch.utils import primes
+from matrix_fhe_tpu_torch.utils import primes, serialization
 
 N = 1 << 5
 Q = ntt_cuda.find_v2_primes(N, 4)
@@ -124,6 +125,11 @@ CONSTRUCTORS = {
     "mpbgv.EncToShare.sample_share": lambda: (lambda p: mpbgv.EncToShare.sample_share(
         _gen(), p, rlwe.Ciphertext(value=(p.ring_q.moduli[None, :1],) * 2)).mask_t)(
         bgv.new_parameters(bgv.BGVParametersLiteral(logn=5, t=257, q=tuple(Q), p=tuple(P)))),
+    "serialization.load": lambda: serialization.load(serialization.save(K.SecretKey(
+        value=_share(rlwe.new_parameters(rlwe.ParametersLiteral(logn=5, q=tuple(Q), p=tuple(P)),
+                                         "cpu"))))).value.q,
+    "flagship.build_flagship": lambda: flagship.build_flagship(logn=5, num_q=2)[4].value[0],
+    "examples.ckks_template.main": lambda: ckks_template.main()["words"]["template"],
 }
 
 
