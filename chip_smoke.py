@@ -11,7 +11,9 @@ two primes, 8 hoisted rotations):
 2. build: compiles the kernels from this checkout, started together, one
    nvcc for each library: csrc/ntt.cu (B1-B3) for each N the path runs
    (2^14, and 2^10 for phase 7), csrc/ntt64.cu (B4) for each N phases 10,
-   17 and 21 run, and csrc/ntt3n.cu (B5, one library for all N);
+   17 and 21 run, csrc/ntt3n.cu (B5, one library for all N) and
+   csrc/ntt_sharded.cu (B6, one library for all N), so that phase 26's
+   ranks only load them;
 3. kernel vs plain: at every NTT shape of the step, the kernel's forward and
    inverse are bit-identical to the plain torch version run on CPU copies,
    inverse(forward(x)) == x, and both versions are timed on the card; the
@@ -296,6 +298,34 @@ CI mode at 2^6), each held to the same calls on the CPU from the same seeds
     decrypted words bit for bit and the decoded values.
 Then B4 against its plain version at every shape phases 23-25 gave it
 (on the CI ring with one kernel a call), and its loss table over them.
+
+Then the multi-device code (parallel/, multiparty/mesh.py), each rank a
+process (parallel/launch.py), on the one card:
+
+26. kernel B6 (csrc/ntt_sharded.cu, the sharded NTT's local step) against
+    its plain version on the card, bit for bit, at every block of the
+    k = 8, 2 and 1 shard shapes of a [2, 10, 2^14] input on the
+    flagship's 9 Q primes and 61-bit P, timed as B4 is (kernels line,
+    queued, L2 flushed, host) beside its bound, with ptxas's registers and
+    spills; then a world of 8 ranks over gloo (each rank on cuda:0, the
+    collectives through host memory): ntt_sharded over all 8 and over the
+    2 of a 4 x 2 mesh, each gathered output == B4's Ring.ntt; the
+    limb-sharded step at make_synthetic_context(14, 16, 3) (bench.py's
+    (14, 19, 3) with L cut to 16, which 8 divides) over 8 ranks, on a
+    [3, 16, 2^14] batch over 8, and on a batch of 2 over a 2 x 4 (batch x
+    limb) mesh, each == fckks.mul_relin_rescale on the card with the
+    dropped limbs zero; the collective public key of 8 parties at logN 14
+    (9 + 1 primes of 45 bits) == the sequential gen_share / aggregate /
+    finalize, a vector encrypted under it decrypting under the sum of the
+    secrets to >= 10 bits; the collective counts (1 all-to-all; 1
+    all-gather + 2 psums; 2 psums) and the kernels' launches of each rank;
+    then the same in a world of 1 rank over NCCL; each sharded call's wall
+    time, the median of 5 after a warm call of the slowest rank (k
+    processes sharing one card: no scaling).  Each rank records every
+    (direction, shape, moduli) it gives B1 and B4 and every block it gives
+    B6; B1 and B4 are then held to their plain versions at each, and B6
+    must have run only at blocks held above.  Their launches in the ranks
+    join the kernels line's launches_by_path.
 Before the kernels line, one "phase time: <n> <seconds>" line a phase (a
 phase's continuation, the B4 checks after its group, counts to it; the
 builds to phase 2).
@@ -309,7 +339,10 @@ three PN14QP438 requests, with launches_by_path over phases 8, 9, 11, 12,
 13 and 17-25; ntt3n_fwd/ntt3n_bwd, kernel B5, phase 15's operations, with
 launches_by_path over its keygen and each operation; ntt64_ci_fwd /
 ntt64_ci_bwd, B4 on the CI ring, phase 16's session, by stage, phase
-18's CI side and phase 25's scheme switching), max
+18's CI side and phase 25's scheme switching; ntt_sharded_local, kernel B6,
+the 8 launches of phase 26's 8-rank NTT, one a rank, with launches_by_path
+over its worlds; B1's and B4's launches_by_path also count phase 26's
+ranks), max
 |kernel - plain| (phases 3 and 9 for B1, 10 for B4, 14 for B5, 16 for B4
 on the CI ring), the kernel's and plain version's times (phase 3's shapes
 summed, one launch each, for ntt_fwd/ntt_bwd; the PN14QP438 step's shapes
@@ -321,7 +354,8 @@ and B5, the 32-bit multiply-adds the function needs over the FMA pipe's
 rate: see MULS_SHOUP and _b5_bound; the kernel's own SASS instructions a
 butterfly are reported beside it).  Times in that line are CUDA-event
 means of launches issued back to back from the host (_event_ms).  No single
-PyTorch call computes a negacyclic NTT mod q, so library_ms is null.  Then, as its last line,
+PyTorch call computes a negacyclic NTT mod q, nor a 64-bit modular matrix
+product (B6), so library_ms is null.  Then, as its last line,
 {"ok": true, "device": {...}}.  Any failed check raises and exits non-zero.
 The script imports no jax.
 
@@ -541,6 +575,24 @@ FLAGSHIP_REQUESTS, FLAGSHIP_REPEATS = 3, 10
 WIRE_LITERAL = dict(logn=6, logq=(45, 45), logp=(45,), log_default_scale=40)
 WIRE_PT_SHA256 = "c41d1ceaadc10de792cab7744df18b2415947e379c058c3f0a8f3f1374af7b81"
 EXAMPLE_LOGNS = (5, 6, 7, 8)  # the examples' rings (B4's CI mode at 2^6)
+# Phase 26, the multi-device code (parallel/, multiparty/mesh.py) with k ranks on the
+# one card: kernel B6 (csrc/ntt_sharded.cu) and the JAX code it replaces; the
+# coefficient-sharded NTT on the flagship's moduli, its shard counts and the lead of its
+# input; the limb-sharded step at bench.py's (14, 19, 3) shape with L cut to 16 (19 is
+# prime: no mesh divides it) and its rank counts; the party axis' literal (8 parties at
+# 45-bit primes: 8 * 2^45 stays below the 2^52 psum bound) and its floor
+# (tests/test_multiparty_mesh.py:50-63); each sharded call timed as the median of this
+# many after one warm call.
+B6_SOURCE = "matrix_fhe_tpu_torch/csrc/ntt_sharded.cu"
+B6_REPLACES = "matrix_fhe_tpu/parallel/ntt_sharded.py:127"
+PAR_NTT_SHARDS = (8, 2, 1)
+PAR_NTT_LEAD = 2
+PAR_FAST = dict(logn=14, num_q=16, num_p=3, rescale_limbs=2, seed=SEED)
+PAR_BATCH = 3
+PAR_PK_LITERAL = dict(logn=14, logq=(45,) * 9, logp=(45,), log_default_scale=40)
+PAR_PK_PARTIES = 8
+PAR_PK_FLOOR = 10
+PAR_REPEATS = 5
 
 
 class PhaseClock:
@@ -3517,6 +3569,416 @@ def surface_phases(dev, smi: str, rng, int32_ops_per_s: float, clock: PhaseClock
             "by_path": by_path, "ci_launches": ci_by}
 
 
+# -- 26. the multi-device code --------------------------------------------------------------
+
+# B6's operations bound: a 64 x 64 -> 128 bit product a multiply-accumulate, one Montgomery
+# reduction (a low and a high half) an output word, and both for a twiddle product
+B6_MULS_MAC = 8
+B6_MULS_REDUCE = MULS_LO + MULS_HI
+B6_MULS_TWIDDLE = B6_MULS_MAC + B6_MULS_REDUCE
+
+
+def _b6_bound(lead: int, limbs: int, R: int, C: int, c: int, int32_ops_per_s: float):
+    """(bytes time, operations time) in ms of one B6 local step on a block of c columns of
+    [lead, limbs, R, C]: 8 B a word of the block, of A, of the T columns and B^T rows the
+    block needs, and of the [lead, limbs, R, C] partial; lead x limbs x R x c x (R + C)
+    multiply-accumulates, one reduction an output word of either product (R x (c + C) a
+    row) and one twiddle product a word of A @ x, in multiply-adds on the FMA pipe."""
+    words = lead * limbs * R * c + limbs * R * R + 2 * limbs * R * c + lead * limbs * R * C
+    macs = lead * limbs * R * c * (R + C)
+    fmas = (B6_MULS_MAC * macs + B6_MULS_REDUCE * lead * limbs * R * (c + C)
+            + B6_MULS_TWIDDLE * lead * limbs * R * c)
+    return 8 * words / HBM_BYTES_PER_S * 1e3, fmas / (int32_ops_per_s / 2) * 1e3
+
+
+def _rank_counts() -> dict:
+    """The collectives and the kernel launches counted in this rank since the reset."""
+    from matrix_fhe_tpu_torch.ops import ntt64_cuda, ntt_cuda, ntt_sharded_cuda
+    from matrix_fhe_tpu_torch.parallel import api
+    return {**api.counts, "b6": ntt_sharded_cuda.launches,
+            "b1_fwd": ntt_cuda.fwd_launches, "b1_bwd": ntt_cuda.bwd_launches,
+            "b4_fwd": ntt64_cuda.fwd_launches, "b4_bwd": ntt64_cuda.bwd_launches}
+
+
+def _reset_rank_counts() -> None:
+    from matrix_fhe_tpu_torch.ops import ntt64_cuda, ntt_cuda, ntt_sharded_cuda
+    from matrix_fhe_tpu_torch.parallel import api
+    api.reset_counts()
+    ntt_sharded_cuda.launches = 0
+    ntt_cuda.fwd_launches = ntt_cuda.bwd_launches = 0
+    ntt64_cuda.fwd_launches = ntt64_cuda.bwd_launches = 0
+
+
+def _kernel_shapes(fn):
+    """(fn(), the shapes it gave B1, B4 and B6) as keys that pickle: {"b1" and "b4":
+    [(direction, shape, moduli)], "b6": [(block shape, first column, N, moduli)]}."""
+    from matrix_fhe_tpu_torch.ops import ntt_sharded_cuda
+    b4_seen, b6_seen, box = {}, set(), []
+    local = ntt_sharded_cuda.local_step
+
+    def b6(x, tabs, col0):
+        b6_seen.add((tuple(x.shape), col0, tabs.n, tuple(tabs.moduli.tolist())))
+        return local(x, tabs, col0)
+
+    ntt_sharded_cuda.local_step = b6
+    try:
+        b1_seen = ntt_shapes(lambda: box.append(b4_shapes(fn, b4_seen)))
+    finally:
+        ntt_sharded_cuda.local_step = local
+    return box[0], {"b1": sorted({(d, shape, tuple(tabs.moduli.tolist()))
+                                  for (d, shape, _), tabs in b1_seen.items()}),
+                    "b4": sorted(b4_seen), "b6": sorted(b6_seen)}
+
+
+def _rank_call(call, mesh, axis: str, repeats: int, **outputs) -> dict:
+    """A rank's result for one sharded call: call() once with the counts zeroed just
+    before and read just after and its kernels' shapes recorded, then ``repeats`` more
+    calls, each timed between a barrier and a device synchronize (ms); ``outputs`` maps
+    each output's name to a function of call()'s result that gives its numpy words."""
+    import torch.distributed as dist
+    dev = mesh.device
+    _sync(dev)
+    _reset_rank_counts()
+    out, shapes = _kernel_shapes(call)
+    _sync(dev)
+    counts = _rank_counts()
+    times = []
+    for _ in range(repeats):
+        dist.barrier()
+        _sync(dev)
+        t0 = time.perf_counter()
+        call()
+        _sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    backend = str(dist.get_backend(mesh.group(axis)))
+    return {**{k: f(out) for k, f in outputs.items()}, "counts": counts, "shapes": shapes,
+            "times": times, "coords": dict(zip(mesh.axis_names, mesh.coords)),
+            "transport": backend + (" through host memory" if backend == "gloo"
+                                    and dev.type == "cuda" else "")}
+
+
+def _case_mesh(case: dict, axis: str, device_type: str, meshes: dict):
+    """The case's mesh ("axes", else ``axis`` over the world), made once a world for each
+    set of axes (every rank makes the same ones in the same order)."""
+    import torch.distributed as dist
+    from matrix_fhe_tpu_torch.parallel import api
+    axes = case.get("axes") or {axis: dist.get_world_size()}
+    key = tuple(axes.items())
+    if key not in meshes:
+        meshes[key] = api.make_mesh(dict(axes), device_type)
+    return meshes[key]
+
+
+def _select(results: list, **coords) -> list:
+    """The results of the ranks at ``coords`` on the axes named, in rank order."""
+    return [r for r in results if all(r["coords"][a] == c for a, c in coords.items())]
+
+
+def world26(ntt_cases: list, fast_cases: list, pk_args, repeats: int,
+            device_type: str = "cuda") -> dict:
+    """A rank's body in phase 26 (parallel/launch.py), one world for the three sharded
+    functions, each on this rank's block of its case (``_rank_call``):
+
+      * "ntt": ``ntt_sharded`` over the "seq" axis for each case {"n", "moduli", "x":
+        [.., L, N] words} (this rank's column block of the output, "out");
+      * "fast": ``build_sharded_step`` over the "limb" axis at ``make_synthetic_context``
+        of each case's arguments (with "batch": B, B copies of the operands rolled by
+        0 .. B-1 along N, split over a "batch" axis where the mesh has one): this rank's
+        output blocks "o0", "o1";
+      * "pk": ``collective_pk_over_mesh_from_samples`` over a "party" axis of the world
+        at the literal, the parties' (secret, noise) draws and the common polynomial's
+        (Q, P) draws of ``pk_args``: the key's (Q, P) words "pk".
+
+    Also the seconds each took in this rank ("marks") and the body's start and end on the
+    host's clock ("epoch")."""
+    import torch.distributed as dist
+    from matrix_fhe_tpu_torch.fast import fckks
+    from matrix_fhe_tpu_torch.multiparty import mesh as mpm
+    from matrix_fhe_tpu_torch.multiparty import protocols
+    from matrix_fhe_tpu_torch.parallel import api, fast_sharded
+    from matrix_fhe_tpu_torch.parallel import ntt_sharded as sh
+    from matrix_fhe_tpu_torch.schemes import ckks
+    started, t0 = time.time(), time.perf_counter()
+    out, meshes = {"ntt": [], "fast": []}, {}
+    for case in ntt_cases:
+        mesh = _case_mesh(case, "seq", device_type, meshes)
+        tabs = sh.build_tables(case["n"], case["moduli"], mesh.device)
+        x = sh.shard_columns(torch.from_numpy(case["x"]), tabs, mesh.shape["seq"],
+                             mesh.index("seq")).to(mesh.device)
+        out["ntt"].append(_rank_call(lambda: sh.ntt_sharded(x, tabs, mesh), mesh, "seq", repeats,
+                                     out=lambda o: o.cpu().numpy()))
+    t1 = time.perf_counter()
+    for case in fast_cases:
+        mesh = _case_mesh(case, "limb", device_type, meshes)
+        ctx, cts = fckks.make_synthetic_context(case["logn"], case["num_q"], case["num_p"],
+                                                rescale_limbs=case["rescale_limbs"],
+                                                seed=case["seed"], device=mesh.device)
+        if case["batch"]:
+            cts = tuple(torch.stack([torch.roll(v, b, dims=-1) for b in range(case["batch"])])
+                        for v in cts)
+        blocks = api.shard_ciphertext_batch(mesh, cts, limbs=True)
+        fn = fast_sharded.build_sharded_step(ctx, mesh)
+        out["fast"].append(_rank_call(lambda: fn(*blocks), mesh, "limb", repeats,
+                                      o0=lambda o: o[0].cpu().numpy(),
+                                      o1=lambda o: o[1].cpu().numpy()))
+    t2 = time.perf_counter()
+    literal, samples, crp = pk_args
+    mesh = api.make_mesh({"party": dist.get_world_size()}, device_type)
+    params = ckks.new_parameters(ckks.CKKSParametersLiteral(**literal), mesh.device)
+    draws = [mpm.PartySample(secret=torch.from_numpy(s), noise=torch.from_numpy(e))
+             for s, e in samples]
+    crp_qp = protocols.crp_qp_from_samples(params, *(torch.from_numpy(a) for a in crp))
+    out["pk"] = _rank_call(
+        lambda: mpm.collective_pk_over_mesh_from_samples(params, mesh, draws, crp_qp), mesh,
+        "party", repeats, pk=lambda o: tuple(v.cpu().numpy() for v in (o[0].value[0].q,
+                                                                        o[0].value[0].p)))
+    out["marks"] = {"ntt": t1 - t0, "step": t2 - t1, "public key": time.perf_counter() - t2}
+    out["epoch"] = (started, time.time())
+    return out
+
+
+def _world_ms(per_rank: list) -> float:
+    """The median over the timed calls of the slowest rank's wall time, ms."""
+    return float(statistics.median(np.max(np.array([r["times"] for r in per_rank]), axis=0)))
+
+
+def _mesh_label(per_rank: list) -> str:
+    """The mesh's axes and sizes, from the last rank's coordinates."""
+    return " x ".join(f"{a} {c + 1}" for a, c in per_rank[-1]["coords"].items())
+
+
+def _ptxas_lines(log_path) -> list:
+    """ptxas's register and spill lines of a build log."""
+    return [line.strip() for line in log_path.read_text().splitlines()
+            if "registers" in line or "spill" in line]
+
+
+def parallel_phase(dev, smi: str, rng, int32_ops_per_s: float, clock: PhaseClock) -> dict:
+    """Phase 26 (see the module's docstring): returns the kernels line's B6 entry."""
+    from matrix_fhe_tpu_torch import flagship
+    from matrix_fhe_tpu_torch.fast import fckks
+    from matrix_fhe_tpu_torch.multiparty import mesh as mpm
+    from matrix_fhe_tpu_torch.multiparty import protocols
+    from matrix_fhe_tpu_torch.ops import ntt_cuda, ntt_sharded_cuda, rings
+    from matrix_fhe_tpu_torch.parallel import launch
+    from matrix_fhe_tpu_torch.parallel import ntt_sharded as sh
+    from matrix_fhe_tpu_torch.rlwe import decryptor, encryptor
+    from matrix_fhe_tpu_torch.rlwe import keys as K
+    from matrix_fhe_tpu_torch.schemes import ckks
+    from matrix_fhe_tpu_torch.schemes.ckks import precision
+
+    # -- B6 against its plain version on the card at the shard shapes, and timed ---------
+    n = 1 << LOGN
+    fp = flagship.flagship_parameters(*FLAGSHIP, device=dev)
+    moduli = list(fp.q) + list(fp.p)
+    tabs = sh.build_tables(n, moduli, dev)
+    L, R, C = len(moduli), tabs.rows, tabs.cols
+    x_cpu = _words(rng, (PAR_NTT_LEAD,), moduli, n)
+    x = x_cpu.to(dev)
+    print(f"phase parallel: the sharded NTT at N = 2^{LOGN} on the flagship's {L} moduli "
+          f"({', '.join(str(q.bit_length()) for q in moduli)} bits), input "
+          f"[{PAR_NTT_LEAD}, {L}, {n}] = [{PAR_NTT_LEAD}, {L}, {R}, {C}]")
+    log = ntt_cuda.library_path(ntt_sharded_cuda.BUILD_KEY, ntt_sharded_cuda.SOURCE)
+    for line in _ptxas_lines(log.with_suffix(".log")):
+        print(f"phase parallel: B6 ptxas: {line}")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    err, b6, b6_held = 0, {}, set()
+    for k in PAR_NTT_SHARDS:
+        c = C // k
+        for i in range(k):
+            blk = sh.shard_columns(x, tabs, k, i)
+            got = ntt_sharded_cuda.local_step(blk, tabs, i * c)
+            want = ntt_sharded_cuda.local_step_plain(blk, tabs, i * c)
+            err = max(err, int((got - want).abs().max()))
+            b6_held.add((tuple(blk.shape), i * c, n, tuple(moduli)))
+        blk = sh.shard_columns(x, tabs, k, 0)
+
+        def call():
+            return ntt_sharded_cuda.local_step(blk, tabs, 0)
+        t = {"ms": _event_ms(call), "device": _device_ms(call),
+             "flushed": _flushed_ms(call, flush), "host": _host_ms(call),
+             "plain_ms": _event_ms(lambda: ntt_sharded_cuda.local_step_plain(blk, tabs, 0),
+                                   iters=5, warmup=1)}
+        bound = _b6_bound(PAR_NTT_LEAD, L, R, C, c, int32_ops_per_s)
+        b6[k] = (t, bound)
+        print(f"phase parallel: B6 at a k = {k} shard's block {list(blk.shape)} -> "
+              f"{[PAR_NTT_LEAD, L, R, C]}: kernel {t['ms']:.4f} ms, device queued "
+              f"{t['device']:.4f} ms, L2 flushed {t['flushed']:.4f} ms, host {t['host']:.4f} ms "
+              f"a call | plain {t['plain_ms']:.4f} ms | bound bytes {bound[0] * 1e3:.3f} us, "
+              f"operations {bound[1] * 1e3:.3f} us | {smi}")
+    assert err == 0, f"B6 != its plain version (max |difference| {err})"
+    print(f"phase parallel: B6 == its plain version on the card at every block of the "
+          f"k = {PAR_NTT_SHARDS} shard shapes")
+    del flush
+
+    # -- the unsharded results on the card -------------------------------------------------
+    want_ntt = rings.new_ring(n, moduli, device=dev).ntt(x).cpu()
+    ctx, cts = fckks.make_synthetic_context(**PAR_FAST, device=dev)
+    want_fast = [o.cpu() for o in fckks.mul_relin_rescale(ctx, *cts)]
+    rolled = [torch.stack([torch.roll(v, b, dims=-1) for b in range(PAR_BATCH)]) for v in cts]
+    want_batch = [[o.cpu() for o in fckks.mul_relin_rescale(ctx, *(v[b] for v in rolled))]
+                  for b in range(PAR_BATCH)]
+    live = PAR_FAST["num_q"] - PAR_FAST["rescale_limbs"]
+    del ctx, cts, rolled
+    pk_params = ckks.new_parameters(ckks.CKKSParametersLiteral(**PAR_PK_LITERAL), dev)
+    samples = mpm.sample_collective_pk_over_mesh(pk_params, PAR_PK_PARTIES, _gen(2601))
+    crp = protocols.sample_crp_qp(_gen(2602), pk_params)
+    sks = [K.secret_key_from_sample(pk_params, s.secret) for s in samples]
+    shares = [protocols.PublicKeyGen.share_from_sample(pk_params, sk, crp, s.noise)
+              for sk, s in zip(sks, samples)]
+    want_pk = {}
+    for parties in (1, PAR_PK_PARTIES):
+        agg = shares[0]
+        for sh_ in shares[1:parties]:
+            agg = protocols.PublicKeyGen.aggregate(pk_params, agg, sh_)
+        want_pk[parties] = protocols.PublicKeyGen.finalize(pk_params, agg, crp)
+    samples_np = [(s.secret.cpu().numpy(), s.noise.cpu().numpy()) for s in samples]
+    crp_np = (crp.q.cpu().numpy(), crp.p.cpu().numpy())
+
+    # -- the worlds of ranks on the card: 8 ranks over gloo (the 2-rank NTT and the 4-rank
+    # step as 2-D meshes of them), then 1 rank over NCCL -----------------------------------
+    ntt_cases = {8: {"n": n, "moduli": moduli, "x": x_cpu.numpy()},
+                 2: {"n": n, "moduli": moduli, "x": x_cpu.numpy(), "axes": {"rep": 4, "seq": 2}}}
+    fast_cases = {(8, 0): dict(PAR_FAST, batch=0), (8, PAR_BATCH): dict(PAR_FAST, batch=PAR_BATCH),
+                  (4, 2): dict(PAR_FAST, batch=2, axes={"batch": 2, "limb": 4})}
+    worlds = {8: (ntt_cases, fast_cases, PAR_PK_PARTIES),
+              1: ({1: dict(ntt_cases[8])}, {(1, 0): fast_cases[8, 0]}, 1)}
+    launches = {}
+    by_path = {d: {} for d in ("fwd", "bwd", "ntt64_fwd", "ntt64_bwd")}
+    shapes = {"b1": set(), "b4": set(), "b6": set()}
+    on_card = dev.type == "cuda"
+
+    def path(label, per_rank):
+        """Each rank's B1 and B4 launches in one sharded call, summed into by_path, and
+        the shapes it gave B1, B4 and B6."""
+        for kind, name in (("b1_fwd", "fwd"), ("b1_bwd", "bwd"), ("b4_fwd", "ntt64_fwd"),
+                           ("b4_bwd", "ntt64_bwd")):
+            total = sum(r["counts"][kind] for r in per_rank)
+            if total:
+                by_path[name][label] = total
+        for r in per_rank:
+            for kind in shapes:
+                shapes[kind].update(r["shapes"][kind])
+
+    for world, (ncs, fcs, parties) in worlds.items():
+        t0 = time.time()
+        res = launch.run(world26, world, list(ncs.values()), list(fcs.values()),
+                         (PAR_PK_LITERAL, samples_np[:parties], crp_np), PAR_REPEATS, dev.type,
+                         device=dev, timeout=600)
+        t1 = time.time()
+        print(f"phase parallel: a world of {world} rank(s) ({res[0]['ntt'][0]['transport']}) took "
+              f"{t1 - t0:.2f} s of wall time: the ranks' bodies began "
+              f"{min(r['epoch'][0] for r in res) - t0:.2f}-{max(r['epoch'][0] for r in res) - t0:.2f}"
+              f" s after the launch (spawn, imports, the process group) and ended "
+              f"{t1 - max(r['epoch'][1] for r in res):.2f} s before it returned; in rank 0: "
+              + ", ".join(f"{k} {v:.2f} s" for k, v in res[0]["marks"].items()))
+        for i, k in enumerate(ncs):
+            blocks = _select([r["ntt"][i] for r in res], rep=0) if k == 2 else \
+                [r["ntt"][i] for r in res]
+            got = sh.gather_columns([torch.from_numpy(b["out"]) for b in blocks], tabs)
+            assert len(blocks) == k and torch.equal(got, want_ntt), \
+                f"phase 26: the sharded NTT on {k} ranks != B4"
+            for r in res:
+                c_ = r["ntt"][i]["counts"]
+                assert (c_["all_to_all"], c_["all_gather"], c_["psum"]) == (1, 0, 0), c_
+                assert c_["b6"] == on_card, c_  # the plain version on the CPU
+            launches[f"sharded NTT, {k} ranks (phase 26)"] = sum(b["counts"]["b6"] for b in blocks)
+            path(f"sharded NTT, {k} ranks (phase 26)", [r["ntt"][i] for r in res])
+            print(f"phase parallel: ntt_sharded over {k} ranks (a mesh of "
+                  f"{_mesh_label([r['ntt'][i] for r in res])}) == B4's Ring.ntt, 1 all-to-all a "
+                  f"rank, B6 launches {[b['counts']['b6'] for b in blocks]}, "
+                  f"{_world_ms(blocks):.3f} ms a call | {smi}")
+        for i, ((k, batch), case) in enumerate(fcs.items()):
+            per_rank = [r["fast"][i] for r in res]
+            if "axes" in case:  # a batch coordinate's limb shards hold its element
+                groups = [(_select(per_rank, batch=b), [want_batch[b]]) for b in range(batch)]
+            else:
+                groups = [(per_rank, want_batch if batch else [want_fast])]
+            for blocks, wants in groups:
+                o0, o1 = (torch.from_numpy(np.concatenate([x_[o] for x_ in blocks], axis=-2)).reshape(
+                    len(wants), -1, n) for o in ("o0", "o1"))
+                assert len(blocks) == k
+                for j, w in enumerate(wants):
+                    assert torch.equal(o0[j, :live], w[0]) and torch.equal(o1[j, :live], w[1]), \
+                        f"phase 26: the sharded step on {k} ranks, batch {batch}, element {j}"
+                assert not o0[:, live:].any() and not o1[:, live:].any()
+            for x_ in per_rank:
+                c_ = x_["counts"]
+                assert (c_["all_gather"], c_["psum"], c_["all_to_all"]) == (
+                    1, PAR_FAST["rescale_limbs"], 0), c_
+                assert (min(c_["b1_fwd"], c_["b1_bwd"]) > 0) == on_card, c_
+            shape = ([batch] if batch else []) + [PAR_FAST["num_q"], n]
+            path(f"sharded step {shape}, a mesh of {_mesh_label(per_rank)} (phase 26)", per_rank)
+            print(f"phase parallel: build_sharded_step on {shape} over a mesh of "
+                  f"{_mesh_label(per_rank)} == "
+                  f"fckks.mul_relin_rescale, dropped limbs zero; (all-gather, psum) "
+                  f"{[per_rank[0]['counts'][c] for c in ('all_gather', 'psum')]} a rank, B1 "
+                  f"{per_rank[0]['counts']['b1_fwd']} + {per_rank[0]['counts']['b1_bwd']} a "
+                  f"rank, {_world_ms(per_rank):.3f} ms a call | {smi}")
+        want = want_pk[parties].value[0]
+        for r in res:
+            got_q, got_p = (torch.from_numpy(a) for a in r["pk"]["pk"])
+            assert torch.equal(got_q, want.q.cpu()) and torch.equal(got_p, want.p.cpu()), \
+                f"phase 26: the mesh public key of {parties} parties != sequential"
+            c_ = r["pk"]["counts"]
+            assert (c_["psum"], c_["all_gather"], c_["all_to_all"]) == (2, 0, 0), c_
+            assert (c_["b4_fwd"] > 0) == on_card, c_
+        path(f"party-axis key, {parties} ranks (phase 26)", [r["pk"] for r in res])
+        print(f"phase parallel: collective_pk_over_mesh_from_samples of {parties} parties == the "
+              f"sequential protocol, 2 psums a rank, B4 {res[0]['pk']['counts']['b4_fwd']} "
+              f"forward a rank, {_world_ms([r['pk'] for r in res]):.3f} ms a call | {smi}")
+    print(f"phase parallel: each call's time is the median of {PAR_REPEATS} after one warm "
+          f"call, of the slowest rank, with the world's processes sharing one card (no scaling)")
+
+    # the 8 parties' key encrypts under the sum of their secrets
+    pk = K.PublicKey(value=(want_pk[PAR_PK_PARTIES].value[0], crp))
+    rq, rp = pk_params.ring_q, pk_params.ring_p
+    ideal_q, ideal_p = sks[0].value.q, sks[0].value.p
+    for s in sks[1:]:
+        ideal_q, ideal_p = rq.add(ideal_q, s.value.q), rp.add(ideal_p, s.value.p)
+    enc = ckks.Encoder(pk_params)
+    v = np.random.default_rng(SEED).uniform(-1, 1, pk_params.max_slots) + 0j
+    ct = encryptor.encrypt(_gen(2603), pk_params, pk, enc.encode(v))
+    dec = enc.decode(decryptor.decrypt(pk_params, K.SecretKey(value=K.QPPoly(ideal_q, ideal_p)),
+                                       ct))
+    st = precision.assert_precision(v, dec, PAR_PK_FLOOR)
+    print(f"phase parallel: a vector of {len(v)} slots encrypted under the 8 parties' key "
+          f"decrypts under the sum of their secrets to min {st.min_precision:.4f} bits, mean "
+          f"{st.avg_precision:.4f} (floor {PAR_PK_FLOOR}: tests/test_multiparty_mesh.py:50-63)")
+
+    # every shape the ranks gave B6, B1 and B4, held against its plain version on the card
+    unheld = shapes["b6"] - b6_held
+    assert not unheld, f"phase 26: B6 ran at blocks not held to its plain version: {unheld}"
+    print(f"phase parallel: the ranks gave B6 {len(shapes['b6'])} blocks (shape, first column),"
+          f" each among those held above")
+    b1_tabs, b4_rings = {}, {}
+    b1_rows = check_ntt_shapes({key: b1_tabs.setdefault(
+        (key[1][-1], key[2]), ntt_cuda.build_tables(key[1][-1], list(key[2]), dev))
+        for key in shapes["b1"]}, dev, rng)
+    for d, shape, c, err_, ms in b1_rows:
+        assert err_ == 0, f"phase 26: B1 {d} {shape}: kernel != plain ({err_})"
+    b4_rows = check_b4_shapes({key: b4_rings.setdefault(
+        (key[1][-1], key[2]), rings.new_ring(key[1][-1], list(key[2]), device=dev))
+        for key in shapes["b4"]}, dev, rng)
+    for d, shape, c, err_, _ in b4_rows:
+        assert err_ == 0, f"phase 26: B4 {d} {shape}: kernel != plain ({err_})"
+    for name, rows in (("B1", b1_rows), ("B4", b4_rows)):
+        merged = sorted({(d, shape) for d, shape, *_ in rows}, key=lambda k_: (k_[1], k_[0]))
+        print(f"phase parallel: {name} at the {len(rows)} (direction, shape, moduli) the ranks "
+              f"gave it: kernel == plain at every one; the shapes: "
+              + ", ".join(f"{d} {list(shape)}" for d, shape in merged))
+    t8, bound8 = b6[PAR_NTT_SHARDS[0]]
+    clock.done(26)
+    return {"b6": {"name": "ntt_sharded_local", "route": "cuda", "source": B6_SOURCE,
+                   "replaces": B6_REPLACES,
+                   "launches": launches[f"sharded NTT, {PAR_NTT_SHARDS[0]} ranks (phase 26)"],
+                   "max_abs_err": err, "ms": t8["ms"], "plain_ms": t8["plain_ms"],
+                   **_bound_entry([bound8]), "device_ms": t8["device"],
+                   "flushed_ms": t8["flushed"], "host_ms": t8["host"], "library_ms": None,
+                   "launches_by_path": launches},
+            "by_path": by_path, "b1_rows": b1_rows, "b4_rows": b4_rows}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -3548,12 +4010,13 @@ def run(refs: CPUReferences) -> int:
     # -- 2. build -------------------------------------------------------------
     from matrix_fhe_tpu_torch.ops import ntt64_cuda
     t0 = time.perf_counter()
-    from matrix_fhe_tpu_torch.ops import ntt3n_cuda
+    from matrix_fhe_tpu_torch.ops import ntt3n_cuda, ntt_sharded_cuda
     built = ntt_cuda.build_all([(ntt_cuda.SOURCE, logn) for logn in PATH_LOGNS]
                                + [(ntt64_cuda.SOURCE, logn) for logn in sorted(
                                    set(B4_SIZES) | set(RS_LOGNS) | set(EXAMPLE_LOGNS)
                                    | {BR_RING[0], BR_LWE[0]})]
-                               + [(ntt3n_cuda.SOURCE, ntt3n_cuda.BUILD_KEY)])
+                               + [(ntt3n_cuda.SOURCE, ntt3n_cuda.BUILD_KEY),
+                                  (ntt_sharded_cuda.SOURCE, ntt_sharded_cuda.BUILD_KEY)])
     print(f"phase build: built {len(built)} libraries, "
           f"{', '.join(ntt_cuda.library_path(logn, src).name for src, logn in built)}, in "
           f"{time.perf_counter() - t0:.2f} s (one nvcc each, started together)")
@@ -4011,6 +4474,7 @@ def run(refs: CPUReferences) -> int:
     clock.done(22)
     surface = surface_phases(dev, smi, rng, int32_ops_per_s, clock, refs)
     hold_to_cpu_references(to_hold, refs, clock)
+    par = parallel_phase(dev, smi, rng, int32_ops_per_s, clock)
     assert "jax" not in sys.modules
     loss = (b4["loss"] + fork["ci_loss"] + rings["loss"] + rings["ci_loss"] + rgsw_mp["loss"]
             + surface["loss"] + surface["ci_loss"])
@@ -4040,6 +4504,7 @@ def run(refs: CPUReferences) -> int:
         stats[f"ntt64_{d}"] = dict(b4["stats"][d], max_abs_err=max(
             [r[-1] for r in b4["size_rows"]] + [r[3] for r in b4["shape_rows"] + rings["shape_rows"]
                                                 + rgsw_mp["shape_rows"] + surface["shape_rows"]
+                                                + par["b4_rows"]
                                                 if r[0] == d]))
         REPLACES[f"ntt64_{d}"] = B4_REPLACES[d]
     for d in ("fwd", "bwd"):
@@ -4057,6 +4522,10 @@ def run(refs: CPUReferences) -> int:
             [fork["ci_stats"][d]["max_abs_err"]] + [r[2] for r in rings["ci_rows"] + surface["ci_rows"]
                                                      if r[0] == d]))
         REPLACES[f"ntt64_ci_{d}"] = CI_REPLACES[d]
+    for d, paths in par["by_path"].items():  # phase 26's ranks
+        by_path[d].update(paths)
+    for d, _, _, err_, _ in par["b1_rows"]:
+        stats[d]["max_abs_err"] = max(stats[d]["max_abs_err"], err_)
     kernels = []
     for d in ("fwd", "bwd", "chain_fwd", "chain_bwd", "w22_fwd", "w22_bwd", "ntt64_fwd",
               "ntt64_bwd", "ntt3n_fwd", "ntt3n_bwd", "ntt64_ci_fwd", "ntt64_ci_bwd"):
@@ -4068,8 +4537,10 @@ def run(refs: CPUReferences) -> int:
             entry["launches_by_path"] = by_path[d]
         assert entry["launches"] > 0 and entry["max_abs_err"] == 0, entry
         kernels.append(entry)
-    clock.done(25)
-    for n in range(1, 26):
+    assert par["b6"]["launches"] > 0 and par["b6"]["max_abs_err"] == 0, par["b6"]
+    kernels.append(par["b6"])
+    clock.done(26)
+    for n in range(1, 27):
         print(f"phase time: {n} {clock.times.get(n, 0.0):.3f}")
     print(f"phase time: all {sum(clock.times.values()):.3f}")
     print(json.dumps({"kernels": kernels}))

@@ -8,9 +8,11 @@ ciphertexts and plaintexts with their metadata, the bootstrapping
 parameters, literal and evaluation keys (the encapsulation keys included),
 the 3N ring's literals (RLWE and Matrix-CKKS) and its factorized NTT
 tables (with kernel B5's, rebuilt from each limb's modulus and root, which
-its twist row gives back), the BGV literal and parameters (their ring_t and
-QMul basis rebuilt from T and the chain), a RingPackingEvaluator (its
-parameters, secrets, ring-switching and galois keys and monomials), RGSW
+its twist row gives back), the sharded NTT's four-step tables
+(``ShardedNTTTables``, word for word), the BGV literal and parameters
+(their ring_t and QMul basis rebuilt from T and the chain), a
+RingPackingEvaluator (its parameters, secrets, ring-switching and galois
+keys and monomials), RGSW
 ciphertexts and blind-rotation keys (their RGSW ciphertexts and galois
 keys), the CKKS refresh's shares (``RefreshShare``), and dicts, lists and
 tuples of them (the ring-swap key pairs of ``rlwe/ring_switch.py`` and
@@ -46,6 +48,7 @@ import torch
 from matrix_fhe_tpu_torch.circuits.ckks import bootstrapping as btp
 from matrix_fhe_tpu_torch.multiparty import mpckks
 from matrix_fhe_tpu_torch.ops import ntt_3n
+from matrix_fhe_tpu_torch.ops import ntt_sharded_cuda
 from matrix_fhe_tpu_torch.ops import samplers as smp
 from matrix_fhe_tpu_torch.ops import wide
 from matrix_fhe_tpu_torch.rgsw import blindrot, rgsw
@@ -132,6 +135,11 @@ def carry(obj, device="cuda"):
             **{f: torch.from_numpy(np.asarray(getattr(obj, f), dtype=np.int64)).to(device)
                for f in ("perm", "iperm")},
             **ntt_3n.kernel_tables(int(obj.n), moduli, omegas, perm.tolist(), device))
+    if name == "ShardedNTTTables":
+        return ntt_sharded_cuda.ShardedNTTTables(
+            n=int(obj.n), rows=int(obj.rows), cols=int(obj.cols),
+            **{f: words(getattr(obj, f))
+               for f in ("a_mat", "bt_mat", "tw", "moduli", "qinv", "bhi")})
     if name == "BGVParametersLiteral":
         return _literal(bgv.BGVParametersLiteral, obj)
     if name == "BGVParameters":

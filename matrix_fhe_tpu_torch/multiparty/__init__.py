@@ -1,7 +1,8 @@
 """Multiparty (threshold) HE protocols.
 
 Counterpart of ``matrix_fhe_tpu/multiparty`` (the reference's multiparty/),
-without its mesh-sharded aggregation."""
+its mesh-sharded aggregation included (``mesh.py``: the collective public
+key with the parties over a party axis, aggregated by one psum a plane)."""
 
 from matrix_fhe_tpu_torch.multiparty.protocols import (  # noqa: F401
     PublicKeyGen, EvaluationKeyGen, GaloisKeyGen, RelinKeyGen,

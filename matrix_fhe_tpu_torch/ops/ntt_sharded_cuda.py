@@ -1,0 +1,182 @@
+"""The local step of the coefficient-sharded NTT on the card: kernel B6
+(``csrc/ntt_sharded.cu``).
+
+Counterpart of the shard-local body of
+``matrix_fhe_tpu/parallel/ntt_sharded.py:ntt_sharded`` (XLA u64 Montgomery
+mod-matmuls, not a Pallas kernel): for a rank's column block x
+[.., L, R, c] starting at column ``col0`` of the [R, C] view, the partial
+product ((A @ x) .* T_blk) @ BT_rows mod q, [.., L, R, C], canonical.
+
+  * a CUDA tensor goes through the hand-written kernel; if the kernel cannot
+    be built or launched, the call raises;
+  * a CPU tensor goes through the plain version, ``local_step_plain``
+    (torch ops over ``ops/modmath.py``).
+
+The four-step tables (``ShardedNTTTables``, ``build_tables``) hold the JAX
+package's words: MForm(A), MForm(B^T), MForm(T), q^-1 mod 2^64 and the
+Barrett constant's high word, uint64 bits in int64.
+
+The kernel is built by ``ops/ntt_cuda.py``'s helper (``nvcc`` for sm_90a,
+one library for every N) into ``matrix_fhe_tpu_torch/_build/`` at first
+use; nothing is built or loaded when this module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from matrix_fhe_tpu_torch.ops import modmath as mm
+from matrix_fhe_tpu_torch.ops import ntt_cuda, tables
+from matrix_fhe_tpu_torch.utils.device import resolve_device
+
+SOURCE = ntt_cuda._PKG / "csrc" / "ntt_sharded.cu"
+BUILD_KEY = 0  # the library's size key in ntt_cuda.library_path: one for all N
+MAX_COLS = 512  # csrc/ntt_sharded.cu: kMaxCols (N <= 2^18)
+
+# Kernel launches since the count was last reset.
+launches = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedNTTTables:
+    """Four-step tables in Montgomery form, 64-bit words in int64."""
+    n: int
+    rows: int
+    cols: int
+    a_mat: torch.Tensor   # [L, R, R]  MForm(A)
+    bt_mat: torch.Tensor  # [L, C, C]  MForm(B^T)
+    tw: torch.Tensor      # [L, R, C]  MForm(T)
+    moduli: torch.Tensor  # [L]
+    qinv: torch.Tensor    # [L]  q^-1 mod 2^64
+    bhi: torch.Tensor     # [L]  floor(2^128 / q) >> 64
+
+    @property
+    def device(self) -> torch.device:
+        return self.moduli.device
+
+
+def build_tables(n: int, moduli: list[int], device="cuda") -> ShardedNTTTables:
+    """The tables of ``matrix_fhe_tpu/parallel/ntt_sharded.py:build_tables``
+    (same words), on the card unless ``device`` says otherwise."""
+    device = resolve_device(device)
+    if n < 4 or n & (n - 1):
+        raise ValueError("N must be a power of two >= 4")
+    logn = n.bit_length() - 1
+    a_bits = logn // 2
+    b_bits = logn - a_bits
+    R, C = 1 << a_bits, 1 << b_bits
+    e_hi = 2 * np.array([tables.bit_reverse(i, a_bits) for i in range(R)], dtype=np.int64) + 1
+    brv_lo = np.array([tables.bit_reverse(i, b_bits) for i in range(C)], dtype=np.int64)
+    jr, jc = np.arange(R, dtype=np.int64), np.arange(C, dtype=np.int64)
+    # each table entry is psi^e for an exponent e mod 2N
+    exps = {"a": (C * e_hi[:, None] * jr[None, :]) % (2 * n),
+            "tw": (e_hi[:, None] * jc[None, :]) % (2 * n),
+            "bt": (2 * R * brv_lo[None, :] * jc[:, None]) % (2 * n)}
+    per = {k: [] for k in exps}
+    for q in moduli:
+        mm.check_modulus(q)
+        pows = tables.psi_powers(n, q, tables.root_2n(n, q))
+        mform = np.array([(int(v) << 64) % q for v in pows], dtype=np.int64)
+        for k, e in exps.items():
+            per[k].append(mform[e])
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    def consts(values):
+        return put(np.array([mm.signed(v) for v in values], dtype=np.int64))
+
+    return ShardedNTTTables(
+        n=n, rows=R, cols=C, a_mat=put(np.stack(per["a"])), bt_mat=put(np.stack(per["bt"])),
+        tw=put(np.stack(per["tw"])), moduli=consts(moduli),
+        qinv=consts([mm.gen_mred_constant(q) for q in moduli]),
+        bhi=consts([mm.gen_bred_constant(q)[0] for q in moduli]))
+
+
+def _mod_matmul(mat: torch.Tensor, x: torch.Tensor, q, qinv, bhi) -> torch.Tensor:
+    """out[.., L, i, j] = sum_m mat[.., L, i, m] * x[.., L, m, j] * 2^-64 mod
+    q: a Montgomery product a term, canonical, summed mod q."""
+    prod = mm.mred(mat[..., :, :, :, None], x[..., :, None, :, :], q[:, None, None, None],
+                   qinv[:, None, None, None])
+    return mm.modsum(prod, q[:, None, None], bhi[:, None, None], dim=-2)
+
+
+def local_step_plain(x: torch.Tensor, tabs: ShardedNTTTables, col0: int) -> torch.Tensor:
+    """The plain version of B6 (any device): the partial ((A @ x) .* T_blk) @ BT_rows mod
+    q of the column block x [.., L, R, c] that starts at column ``col0``,
+    [.., L, R, C], canonical (``_mod_matmul_left``, ``mred`` and
+    ``_partial_matmul_right`` of the JAX module)."""
+    c = x.shape[-1]
+    q, qinv, bhi = tabs.moduli, tabs.qinv, tabs.bhi
+    y = _mod_matmul(tabs.a_mat, x, q, qinv, bhi)
+    w = mm.mred(y, tabs.tw[:, :, col0:col0 + c], q[:, None, None], qinv[:, None, None])
+    return _mod_matmul(w, tabs.bt_mat[:, col0:col0 + c, :], q, qinv, bhi)
+
+
+def local_step(x: torch.Tensor, tabs, col0: int) -> torch.Tensor:
+    global launches
+    check_input(x, tabs, col0)
+    if not x.is_cuda:
+        return local_step_plain(x, tabs, col0)
+    out = launch(x.contiguous(), tabs, col0)
+    launches += 1
+    return out
+
+
+def check_input(x: torch.Tensor, tabs, col0: int) -> None:
+    """Raise unless x is int64 [.., L, R, c] for the tables' L limbs and R
+    rows, c dividing C, col0 a multiple of c inside C, on the tables'
+    device (the CPU or a CUDA device)."""
+    L, R, C = int(tabs.moduli.shape[0]), tabs.rows, tabs.cols
+    if x.dtype != torch.int64:
+        raise TypeError(f"the sharded NTT takes int64 words, got {x.dtype}")
+    if x.dim() < 3 or x.shape[-3] != L or x.shape[-2] != R:
+        raise ValueError(f"shape {tuple(x.shape)} is not [..., {L}, {R}, c]")
+    c = x.shape[-1]
+    if c == 0 or C % c or col0 % c or not 0 <= col0 < C:
+        raise ValueError(f"a block of {c} columns at column {col0} of {C}")
+    if x.device != tabs.device:
+        raise ValueError(f"block on {x.device}, tables on {tabs.device}")
+    if not x.is_cuda and x.device.type != "cpu":
+        raise ValueError(f"no sharded NTT for device {x.device}")
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The kernel library, built at first use."""
+    ntt_cuda.build([BUILD_KEY], SOURCE)
+    lib = ctypes.CDLL(str(ntt_cuda.library_path(BUILD_KEY, SOURCE)))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.mfhe_ntt_sharded_local.argtypes = [p] * 8 + [i] * 7 + [p]
+    lib.mfhe_ntt_sharded_local.restype = i
+    return lib
+
+
+def launch(x: torch.Tensor, tabs, col0: int) -> torch.Tensor:
+    """Launch the kernel on a contiguous CUDA tensor that passed
+    ``check_input``.  The caller counts the launch."""
+    L, R, C = int(tabs.moduli.shape[0]), tabs.rows, tabs.cols
+    if C > MAX_COLS:
+        raise NotImplementedError(f"N={tabs.n}: the sharded NTT kernel takes C <= {MAX_COLS}")
+    if not x.is_contiguous():
+        raise ValueError("the sharded NTT kernel takes a contiguous tensor")
+    ts = (tabs.a_mat, tabs.tw, tabs.bt_mat, tabs.moduli, tabs.qinv, tabs.bhi)
+    for t in ts:
+        if not t.is_contiguous() or t.dtype != torch.int64:
+            raise ValueError("the sharded NTT tables must be contiguous int64")
+    lead = x.numel() // (L * R * x.shape[-1])
+    out = x.new_empty(x.shape[:-1] + (C,))
+    if lead == 0:
+        return out
+    dev = x.get_device()
+    err = library().mfhe_ntt_sharded_local(
+        x.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in ts), lead, L, R, C,
+        x.shape[-1], col0, dev, torch._C._cuda_getCurrentRawStream(dev))
+    if err:
+        raise RuntimeError(f"sharded NTT kernel launch failed: CUDA error {err}")
+    return out

@@ -3,16 +3,21 @@ unless asked for another device.  Without a card, a call that names no
 device raises instead of building on the CPU; with one, it builds on the
 card.  Decided inside the test, not at import."""
 
+import os
+import tempfile
 from types import SimpleNamespace
 
 import pytest
 import torch
+import torch.distributed as dist
 
 from matrix_fhe_tpu_torch import carry, flagship, rlwe
 from matrix_fhe_tpu_torch.examples import ckks_template
+from matrix_fhe_tpu_torch.multiparty import mesh as mpm
 from matrix_fhe_tpu_torch.multiparty import mpbgv, mpckks, protocols, threshold
 from matrix_fhe_tpu_torch.fast import fckks, fring, frns, wckks, wring, wrns
 from matrix_fhe_tpu_torch.ops import ntt_3n, ntt_cuda, ntt_w22, rings, rns_tools
+from matrix_fhe_tpu_torch.parallel import api, launch, ntt_sharded
 from matrix_fhe_tpu_torch.rgsw import blindrot, rgsw
 from matrix_fhe_tpu_torch.rlwe import keys as K
 from matrix_fhe_tpu_torch.rlwe import params as rparams
@@ -52,6 +57,21 @@ def _share(params):
                                   device=params.device),
                     p=torch.zeros((len(params.p), params.n), dtype=torch.int64,
                                   device=params.device))
+
+
+def _mesh():
+    """make_mesh() with its default device, in a one-rank world of this
+    process (gloo, a file store)."""
+    fd, store = tempfile.mkstemp()
+    os.close(fd)
+    os.unlink(store)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=0, world_size=1)
+    try:
+        return api.make_mesh()
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(store):
+            os.unlink(store)
 
 
 # each builds with its default device and returns one of the tensors it made
@@ -130,6 +150,12 @@ CONSTRUCTORS = {
                                          "cpu"))))).value.q,
     "flagship.build_flagship": lambda: flagship.build_flagship(logn=5, num_q=2)[4].value[0],
     "examples.ckks_template.main": lambda: ckks_template.main()["words"]["template"],
+    "ntt_sharded.build_tables": lambda: ntt_sharded.build_tables(N, Q).a_mat,
+    "api.make_mesh": _mesh,
+    "launch.run (the rank's device)": lambda: SimpleNamespace(
+        device=launch.run(api.rank_device, 1)[0]),
+    "mesh.sample_collective_pk_over_mesh": lambda: mpm.sample_collective_pk_over_mesh(
+        _params(), 2, _gen())[0].secret,
 }
 
 

@@ -26,6 +26,12 @@ multiparty protocols: ``test_torch_base2`` ~2 min (78 + 32 s),
 ``test_torch_rgsw`` ~1.8 min, ``test_torch_blindrot`` ~8 min (364 s of
 context, the eager JAX keygen of both sizes, + 34 + 64 s for the two
 ``evaluate``s) and ``test_torch_multiparty`` ~2.6 min.
+
+The multi-device modules: ``test_torch_sharded_ntt`` ~20 s (the JAX ring's
+NTT, ``ntt_reference`` and the 8 shards' local steps, eagerly),
+``test_torch_fast_sharded`` ~40 s (six jitted unsharded steps) and
+``test_torch_multiparty_mesh`` ~30 s (25 s of context: the 8 parties'
+eager ``gen_secret_key``).
 """
 
 from __future__ import annotations
@@ -45,7 +51,8 @@ MODULES = ("test_torch_polynomial", "test_torch_mod1", "test_torch_lintrans",
            "test_torch_matrix_ckks", "test_torch_ci", "test_torch_ring_switch",
            "test_torch_bridge", "test_torch_ring_packing", "test_torch_boot_packed",
            "test_torch_noise", "test_torch_bgv", "test_torch_base2", "test_torch_rgsw",
-           "test_torch_blindrot", "test_torch_multiparty")
+           "test_torch_blindrot", "test_torch_multiparty", "test_torch_sharded_ntt",
+           "test_torch_fast_sharded", "test_torch_multiparty_mesh")
 
 
 def main() -> None:
