@@ -111,15 +111,18 @@ plain NTT on the CPU, and its launches there are printed):
     ops/rings.py) forward and inverse at N = 2^6, 2^10, 2^14, 2^15 and 2^16
     on 45-, 55- and 61-bit primes, rows [1, 1], [1, 9] and [2, 21], at the
     cluster size the rule picks and at every size the kernel is built for
-    (against the CPU's plain version too for one row), with its device time
-    there at the cluster size the rule picks; the instructions a
+    (against the CPU's plain version too for one row), and at N = 2^14 on
+    the wide61 P (bench.py's, its first prime above 2^61) at rows [2, 2],
+    with its device time there at the cluster size the rule picks; the
+    instructions a
     64-bit butterfly of its hot pass, registers and spills
     (tools/ntt_sass.py); and, after phases 11-13, bit-identical at every
     shape they gave it, with its times at the PN14QP438 step's shapes (the
     kernels-line time, the device time queued, L2 flushed, the wrapper's
     host time, the plain version's time) beside the bound;
 11. the wide step at bench.py's two wide shapes (PN14QP438: 55 + 45x6-bit
-    Q, 55x2-bit P; wide61: 60 + 45x5-bit Q, 61x2-bit P), logN 14, each
+    Q, 55x2-bit P; wide61: 60 + 45x5-bit Q, 61x2-bit P, the first P prime
+    above 2^61), logN 14, each
     with 8 galois keys: three requests of mul_relin_rescale and
     rotations_hoisted over the 8 elements, B4 launches a request, the median
     of 10 more, the first request's digests equal to the JAX package's
@@ -306,8 +309,10 @@ process (parallel/launch.py), on the one card:
     its plain version on the card, bit for bit, at every block of the
     k = 8, 2 and 1 shard shapes of a [2, 10, 2^14] input on the
     flagship's 9 Q primes and 61-bit P, timed as B4 is (kernels line,
-    queued, L2 flushed, host) beside its bound, with ptxas's registers and
-    spills; then a world of 8 ranks over gloo (each rank on cuda:0, the
+    queued, L2 flushed, host) beside its bound, with the geometry the
+    rule gives each block, ptxas's registers and spills and the SASS
+    instructions a multiply-accumulate of each product's hot loop
+    (tools/ntt_sass.py --b6); then a world of 8 ranks over gloo (each rank on cuda:0, the
     collectives through host memory): ntt_sharded over all 8 and over the
     2 of a 4 x 2 mesh, each gathered output == B4's Ring.ntt; the
     limb-sharded step at make_synthetic_context(14, 16, 3) (bench.py's
@@ -352,7 +357,7 @@ shape for the others), and the bound: the larger of the bytes over the
 card's memory rate and the integer operations over its int32 rate (for B4
 and B5, the 32-bit multiply-adds the function needs over the FMA pipe's
 rate: see MULS_SHOUP and _b5_bound; the kernel's own SASS instructions a
-butterfly are reported beside it).  Times in that line are CUDA-event
+butterfly, or for B6 a multiply-accumulate, are reported beside it).  Times in that line are CUDA-event
 means of launches issued back to back from the host (_event_ms).  No single
 PyTorch call computes a negacyclic NTT mod q, nor a 64-bit modular matrix
 product (B6), so library_ms is null.  Then, as its last line,
@@ -473,12 +478,11 @@ B4_SOURCE = "matrix_fhe_tpu_torch/csrc/ntt64.cu"
 B4_REPLACES = {"fwd": "matrix_fhe_tpu/ops/wide_ntt.py:286",
                "bwd": "matrix_fhe_tpu/ops/wide_ntt.py:290"}
 B4_SIZES = (6, 10, 14, 15, 16)
-# wide61: bench.py's Q at logN 14 and, for its P, the two largest 61-bit
-# NTT-friendly primes below 2^61 (bench.py's first one, 2305843009214414849,
-# lies above 2^61, where the port's words stop: ROADMAP C)
+# wide61: bench.py's Q and P at logN 14 (make_synthetic_context(14, 6, 2,
+# q_bits=(60,) + (45,) * 8, p_bits=61)); P's first prime lies above 2^61
 WIDE61_Q = (1152921504606748673, 35184372121601, 35184372744193, 35184373006337,
             35184371138561, 35184370941953)
-WIDE61_P = (2305843009211662337, 2305843009211596801)
+WIDE61_P = (2305843009214414849, 2305843009211662337)
 WIDE_SHAPES = {
     "pn14qp438": lambda wckks, dev: wckks.make_synthetic_context(
         LOGN, 0, 0, moduli=(wckks.PN14QP438_Q, wckks.PN14QP438_P), seed=SEED,
@@ -490,8 +494,8 @@ WIDE_ORDERS = [(0, 1, 2, 3), (2, 3, 0, 1), (1, 0, 3, 2)]
 WIDE_STEP_SHA256 = {
     "pn14qp438": ("22ec29b7c996268077d30019ce19f9d2ded8d0fec0a1c9867f9d54eb8b12c01d",
                   "96be3223eb1793738305db5d728e583cd5629b6d9f9722705804266358cba9c3"),
-    "wide61": ("d69a8bf79a0e6e0388a56c01f749c6cf25458cdc5d515ae5f33b411658c4bc0d",
-               "148bf23cc7a71227e13fba9e3b6dd8bc65a7453dbc00aae9e00a989bd374aa31")}
+    "wide61": ("13b3a0b335258d936bdfc1b4a9af74f09b9c60eab2b62afdf016bfd9087c5b16",
+               "63428ccbfe3c2ae7a0bce01cad07e49e71e3b8e5abd432d9c54d02e9b1aa2866")}
 # Phase 12: the JAX package's criterion for the wide bootstrap
 # (tests/test_wboot.py:50-76): decoded mean precision >= 15 bits, min >= 5
 WIDE_BOOT_FLOOR = {"mean": 15.0, "min": 5.0}
@@ -1265,16 +1269,21 @@ def b4_loss(calls: dict, counts: dict, dev, rng, int32_ops_per_s, smi: str, what
 
 def check_b4_sizes(dev, rng, sms) -> list:
     """B4 against its plain version at N = 2^6 to 2^16 on 45-, 55- and
-    61-bit primes, rows [1, 1], [1, 9] and [2, 21], at the cluster size the
-    rule picks and at every size the kernel is built for: one row a size,
-    with the device time (queued) of a transform each way at the picked C."""
+    61-bit primes, rows [1, 1], [1, 9] and [2, 21], and at N = 2^14 on the
+    wide61 P (its first prime above 2^61), rows [2, 2], at the cluster size
+    the rule picks and at every size the kernel is built for: one row a
+    size, with the device time (queued) of a transform each way at the
+    picked C."""
+    from matrix_fhe_tpu_torch.fast import wring
     from matrix_fhe_tpu_torch.ops import ntt64_cuda, rings
     out = []
-    for logn in B4_SIZES:
+    cases = [(logn, rings.new_ring(1 << logn, _b4_moduli(1 << logn), device=dev),
+              (((1,), 1), ((1,), 9), ((2,), 21)), "") for logn in B4_SIZES]
+    cases.append((LOGN, wring.new_wide_ring(1 << LOGN, WIDE61_P, device=dev), (((2,), 2),),
+                  "wide61 P, above 2^61"))
+    for logn, ring, shapes, what in cases:
         n = 1 << logn
-        moduli = _b4_moduli(n)
-        ring = rings.new_ring(n, moduli, device=dev)
-        for lead, limbs in (((1,), 1), ((1,), 9), ((2,), 21)):
+        for lead, limbs in shapes:
             r = ring.limbs(0, limbs)
             x_cpu = _words(rng, lead, r.moduli_tuple, n)
             x = x_cpu.to(dev)
@@ -1288,8 +1297,9 @@ def check_b4_sizes(dev, rng, sms) -> list:
                 for c in cs:
                     got = ntt64_cuda.launch(x, r, fwd, c)
                     err = max(err, int((got != want).sum()))
-                if limbs == 1:  # and the plain version on the CPU
-                    cpu = rings.new_ring(n, list(r.moduli_tuple), device="cpu")
+                if limbs == 1 or what:  # and the plain version on the CPU
+                    cpu = (wring.new_wide_ring if what else rings.new_ring)(
+                        n, list(r.moduli_tuple), device="cpu")
                     want_cpu = (ntt64_cuda.ntt_fwd_plain if fwd else ntt64_cuda.ntt_bwd_plain)(
                         x_cpu, cpu)
                     err = max(err, int((want.cpu() != want_cpu).sum()))
@@ -1297,7 +1307,7 @@ def check_b4_sizes(dev, rng, sms) -> list:
             torch.cuda.synchronize()
             assert torch.equal(back, x), f"B4 2^{logn} {lead + (limbs,)}: inverse(forward(x)) != x"
             out.append((logn, lead + (limbs, n), picked, cs, _device_ms(lambda: r.ntt(x)),
-                        _device_ms(lambda: r.intt(x)), err))
+                        _device_ms(lambda: r.intt(x)), what, err))
     return out
 
 
@@ -1504,9 +1514,10 @@ def wide_phases(dev, smi: str, rng, sms: int, int32_ops_per_s: float, clock: Pha
 
     # -- 10. B4 alone ----------------------------------------------------------------
     size_rows = check_b4_sizes(dev, rng, sms)
-    for logn, shape, picked, cs, f_ms, b_ms, err in size_rows:
-        assert err == 0, f"B4 {list(shape)}: kernel != plain at C in {cs} ({err} words)"
-        print(f"phase b4: {str(list(shape)):20s} C={picked} (rule), kernel == plain at C in "
+    for logn, shape, picked, cs, f_ms, b_ms, what, err in size_rows:
+        assert err == 0, f"B4 {list(shape)} {what}: kernel != plain at C in {cs} ({err} words)"
+        print(f"phase b4: {str(list(shape)):20s} {what + ' ' if what else ''}C={picked} (rule), "
+              f"kernel == plain at C in "
               f"{cs}, forward and inverse; inverse(forward(x)) == x; device time queued "
               f"fwd {f_ms * 1e3:.1f} us, bwd {b_ms * 1e3:.1f} us | {smi}")
     b4_funcs = ntt_sass.parse(ntt_sass.disassemble([LOGN], ntt64_cuda.SOURCE))
@@ -3802,7 +3813,8 @@ def parallel_phase(dev, smi: str, rng, int32_ops_per_s: float, clock: PhaseClock
         bound = _b6_bound(PAR_NTT_LEAD, L, R, C, c, int32_ops_per_s)
         b6[k] = (t, bound)
         print(f"phase parallel: B6 at a k = {k} shard's block {list(blk.shape)} -> "
-              f"{[PAR_NTT_LEAD, L, R, C]}: kernel {t['ms']:.4f} ms, device queued "
+              f"{[PAR_NTT_LEAD, L, R, C]} (threads, ti, cn) "
+              f"{ntt_sharded_cuda.geometry(R, C, c)[:3]}: kernel {t['ms']:.4f} ms, device queued "
               f"{t['device']:.4f} ms, L2 flushed {t['flushed']:.4f} ms, host {t['host']:.4f} ms "
               f"a call | plain {t['plain_ms']:.4f} ms | bound bytes {bound[0] * 1e3:.3f} us, "
               f"operations {bound[1] * 1e3:.3f} us | {smi}")
@@ -3810,6 +3822,17 @@ def parallel_phase(dev, smi: str, rng, int32_ops_per_s: float, clock: PhaseClock
     print(f"phase parallel: B6 == its plain version on the card at every block of the "
           f"k = {PAR_NTT_SHARDS} shard shapes")
     del flush
+    # the SASS instructions a multiply-accumulate of the hot loop of each product, in
+    # the tiled kernel the k = 1 block takes (tools/ntt_sass.py --b6)
+    from tools import ntt_sass
+    funcs = ntt_sass.parse(ntt_sass.disassemble([ntt_sharded_cuda.BUILD_KEY],
+                                                ntt_sharded_cuda.SOURCE))
+    threads, _, cn = ntt_sharded_cuda.geometry(R, C, C)[:3]
+    b6_name = f"tiled_kernel<{threads}, {cn}>"
+    b6_sass = {step: h["instructions"] / h["macs"]
+               for step, h in ntt_sass.b6_loops(b6_name, funcs[b6_name]).items()}
+    print(f"phase parallel: B6 {b6_name} SASS instructions a MAC of each product's hot loop: "
+          f"{', '.join(f'{st} {v:.2f}' for st, v in b6_sass.items())}")
 
     # -- the unsharded results on the card -------------------------------------------------
     want_ntt = rings.new_ring(n, moduli, device=dev).ntt(x).cpu()
@@ -3975,7 +3998,7 @@ def parallel_phase(dev, smi: str, rng, int32_ops_per_s: float, clock: PhaseClock
                    "max_abs_err": err, "ms": t8["ms"], "plain_ms": t8["plain_ms"],
                    **_bound_entry([bound8]), "device_ms": t8["device"],
                    "flushed_ms": t8["flushed"], "host_ms": t8["host"], "library_ms": None,
-                   "launches_by_path": launches},
+                   "sass_instructions_a_mac": b6_sass, "launches_by_path": launches},
             "by_path": by_path, "b1_rows": b1_rows, "b4_rows": b4_rows}
 
 

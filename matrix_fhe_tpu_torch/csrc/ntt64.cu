@@ -1,4 +1,5 @@
-// Negacyclic NTT / inverse NTT over 64-bit RNS residues (moduli below 2^61),
+// Negacyclic NTT / inverse NTT over 64-bit RNS residues (moduli below
+// 2^61 + 2^55, the wide path's range; the u64 rings stop at 2^61),
 // for Hopper (sm_90a): kernel B4 of the port.
 //
 // Replaces the TPU's wide NTT, matrix_fhe_tpu/ops/wide_ntt.py:_transform
@@ -8,7 +9,7 @@
 // (__umul64hi), so a residue is one 64-bit word and the transform is the
 // butterfly NTT of the port's u64 ring (ops/rings.py:_ntt_standard /
 // _intt_standard), bit for bit: each row of an [..., L, N] tensor (limb =
-// row mod L) is transformed under its modulus q < 2^61, the output is in the
+// row mod L) is transformed under its modulus q, the output is in the
 // reference's bit-reversed order (ring/ntt.go) and canonical in [0, q).
 // 16 <= N <= 2^16.
 //
@@ -57,9 +58,12 @@
 //     C >= 4; ops/ntt64_cuda.py:geometry picks C from the rows, by the
 //     sweep's measurements.
 //   * Values stay lazily in [0, 4q) (forward) or [0, 2q) (inverse) between
-//     stages: 4q < 2^63 for q < 2^61.  Products are Shoup products with
-//     __umul64hi, exact in unsigned 64-bit arithmetic; one reduction to
-//     [0, q) at the store.
+//     stages, and every sum a butterfly or a CI fold forms is below 4q:
+//     4q < 2^64 for q < 2^62, so for the wide path's moduli up to
+//     2^61 + 2^55.  Every compare is unsigned (`csub`, a min of unsigned
+//     words).  Products are Shoup products with __umul64hi, exact in
+//     unsigned 64-bit arithmetic for w < q < 2^62; one reduction to [0, q)
+//     at the store.
 //
 // The CI mode (entries mfhe_ntt64_ci_fwd / _bwd): the NTT of the
 // conjugate-invariant ring Z_q[X + X^-1]/(X^2N + 1), which replaces

@@ -163,15 +163,17 @@ FAST_N14 = fast_parameters_literal(14)
 # default scale and 55-bit q0 / mod1 / C2S moduli, or the reference's true
 # widths (60-bit q0 and mod1, 61-bit P, 58-bit C2S).  45-bit primes are
 # plentiful at every degree (spacing 2N << 2^45), so these presets reach
-# logN 15-16, where the < 2^23 pool runs dry.  The port's words stop at
-# 2^61 (ops/wide.py); every prime these presets pick at logN 6-16 is below.
+# logN 15-16, where the < 2^23 pool runs dry.  The wide path admits moduli
+# up to 2^61 + 2^55 (ops/wide.py); the bootstrapping parameters also build
+# the u64 rings, which stop at 2^61, and every prime these presets pick at
+# logN 6-16 is below it.
 
 def check_wide_chain(params) -> None:
     from matrix_fhe_tpu_torch.ops import wide
     for q in list(params.q) + list(params.p or ()):
         if not wide.MIN_WIDE_MODULUS <= q < wide.MAX_WIDE_MODULUS:
             raise ValueError(
-                f"modulus {q} outside [2^41, 2^61): chain is not "
+                f"modulus {q} outside [2^41, 2^61 + 2^55): chain is not "
                 f"wide-path compatible (use a wide_parameters_literal preset)")
 
 

@@ -247,8 +247,9 @@ def ks_mac(ctx: WideCKKSContext, key_q, key_p, yq, yp):
     (d_q [2, LQ, N], d_p [2, LP, N]) in the QP basis, canonical."""
     def mac(key, y, ring):
         q, bhi, blo = ring.moduli[:, None], ring.bhi[:, None], ring.blo[:, None]
-        prods = mm.bred(key, y[..., :, None, :, :], q, bhi, blo)  # [.., D, 2, L, N]
-        return mm.modsum(prods, q, bhi, dim=-4)
+        prods = mm.bred(key, y[..., :, None, :, :], q, bhi, blo)  # [.., D, 2, L, N], < q
+        # D digits summed 4 a round below 2^61, 3 from there on (6q < 2^64)
+        return mm.modsum(prods, q, bhi, dim=-4, fold=mm.sum_fold(ring.moduli_tuple))
 
     return mac(key_q, yq, ctx.ring_q), mac(key_p, yp, ctx.ring_p)
 

@@ -28,7 +28,7 @@ from matrix_fhe_tpu_torch.ops import rings, wide
 
 @dataclasses.dataclass(frozen=True)
 class WideRing(rings.Ring):
-    """``rings.Ring`` in the plain domain, over moduli in [2^41, 2^61).
+    """``rings.Ring`` in the plain domain, over moduli in [2^41, 2^61 + 2^55).
     ``pair31`` is the JAX mode of the ring's parameter set (``wide.use_pair31``
     over its q and p moduli): how a JAX pair of this ring is read."""
 
@@ -63,13 +63,13 @@ class WideRing(rings.Ring):
 
 def new_wide_ring(n: int, moduli, pair31: bool | None = None, device="cuda") -> WideRing:
     """The wide ring of degree ``n`` over ``moduli`` (NTT-friendly primes in
-    [2^41, 2^61)), on ``device`` (the card unless told otherwise).  ``pair31``
-    as ``wide.use_pair31`` over the whole parameter set (None: over
-    ``moduli``)."""
+    [2^41, 2^61 + 2^55)), on ``device`` (the card unless told otherwise).
+    ``pair31`` as ``wide.use_pair31`` over the whole parameter set (None:
+    over ``moduli``)."""
     moduli = wide.check_moduli(moduli)
     if pair31 is None:
         pair31 = wide.use_pair31(moduli)
-    ring = rings.new_ring(n, list(moduli), device=device)
+    ring = rings.new_ring(n, list(moduli), device=device, max_modulus=wide.MAX_WIDE_MODULUS)
     return WideRing(**{f.name: getattr(ring, f.name) for f in dataclasses.fields(ring)},
                     pair31=bool(pair31))
 

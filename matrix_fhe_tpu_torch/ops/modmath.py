@@ -19,9 +19,18 @@ exact low word.  What differs from uint64, and how it is handled here:
   * ``>>`` is arithmetic: every right shift is masked, ``(x >> 32) & M32``;
   * ``<`` is signed: an unsigned compare flips the top bit of both sides
     first (``_ult``), as ``add64_carry`` needs;
-  * ``cred``'s ``a >= q`` is a signed compare, right only while a < 2^63.
-    Every value it sees is below 4q, so the moduli must stay below 2^61:
-    ``check_modulus`` enforces that wherever tables are built.
+  * ``cred`` tests the sign of a - q, which is right for every a in
+    [0, q + 2^63) read as unsigned, so for its [0, 2q) at any q < 2^63.
+    The lazy values of [0, 4q) that some callers form (a + 2q - b, the
+    3N and rescale sums) go only into a Montgomery product or a Barrett
+    reduction, which read all 64 bits unsigned.  ``modsum`` folds 4 terms
+    of [0, 2q) a round below 2^61 and 3 from there on (``sum_fold``).
+
+Two ranges of moduli: ``MAX_MODULUS`` = 2^61 for the u64 rings, the 3N
+ring, the sharded NTT and BGV (``check_modulus``, as the JAX package's u64
+path), and the wide path's 2^61 + 2^55 (``ops/wide.py:MAX_WIDE_MODULUS``,
+passed to ``check_modulus`` by ``fast/wring.py``), where 4q < 2^64 still
+holds for every lazy range above.
 
 Host-side constants (``gen_mred_constant``, ``gen_bred_constant``) are
 Python big ints, as in the reference (GenMRedConstant, GenBRedConstant);
@@ -35,8 +44,7 @@ import torch
 MASK64 = (1 << 64) - 1
 M32 = 0xFFFFFFFF
 INT64_MIN = -(1 << 63)
-# cred compares signed: values below 4q must stay below 2^63
-MAX_MODULUS = 1 << 61
+MAX_MODULUS = 1 << 61  # the u64 path's moduli (4 lazy terms of [0, 2q) a modsum round)
 
 
 def signed(v: int) -> int:
@@ -50,10 +58,18 @@ def unsigned(v: int) -> int:
     return v & MASK64
 
 
-def check_modulus(q: int) -> None:
-    if not 1 < q < MAX_MODULUS:
-        raise ValueError(f"modulus {q} outside (1, 2^61): the int64 words "
-                         f"of the u64 path compare signed")
+def check_modulus(q: int, limit: int = MAX_MODULUS) -> None:
+    """Raise unless 1 < q < limit (``MAX_MODULUS``, or the wide path's
+    ``wide.MAX_WIDE_MODULUS``)."""
+    if not 1 < q < limit:
+        raise ValueError(f"modulus {q} outside (1, {limit}) (2^61 for the u64 path, "
+                         f"2^61 + 2^55 for the wide one)")
+
+
+def sum_fold(moduli) -> int:
+    """Terms of [0, 2q) that ``modsum`` adds a round for ``moduli``: 4 below
+    2^61 (8q < 2^64), 3 up to the wide path's 2^61 + 2^55 (6q < 2^64)."""
+    return 4 if max(int(q) for q in moduli) < MAX_MODULUS else 3
 
 
 # ---------------------------------------------------------------------------
@@ -115,8 +131,10 @@ def add64_carry(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.T
 
 
 def cred(a: torch.Tensor, q) -> torch.Tensor:
-    """a mod q for a in [0, 2q) (a < 2^63)."""
-    return torch.where(a >= q, a - q, a)
+    """a mod q for a in [0, 2q), any q < 2^63: a - q is negative as a signed
+    word exactly when a < q, for every a in [0, q + 2^63) read unsigned."""
+    d = a - q
+    return torch.where(d >= 0, d, a)
 
 
 def mred_lazy(x, y, q, qinv):
@@ -179,22 +197,23 @@ def bred(x, y, q, bhi, blo):
     return cred(bred_lazy(x, y, q, bhi, blo), q)
 
 
-def modsum(x: torch.Tensor, q, bhi, dim: int = -1) -> torch.Tensor:
+def modsum(x: torch.Tensor, q, bhi, dim: int = -1, fold: int = 4) -> torch.Tensor:
     """Sum of values < 2q along ``dim``, mod q.
 
-    Tree reduction folding 4 terms a round (4 * 2q < 2^64 for q < 2^61; the
-    int64 sum wraps to the same 64-bit word) with a Barrett reduction
-    between rounds.  ``q``/``bhi`` broadcast against ``x`` with ``dim``
-    removed."""
+    Tree reduction folding ``fold`` terms a round (fold * 2q < 2^64: 4 for
+    q < 2^61, 3 for the wide path's moduli up to 2^61 + 2^55, ``sum_fold``;
+    the int64 sum wraps to the same 64-bit word, read unsigned) with a
+    Barrett reduction, to [0, 2q), between rounds.  ``q``/``bhi`` broadcast
+    against ``x`` with ``dim`` removed."""
     x = torch.movedim(x, dim, -1)
     q = torch.as_tensor(q, device=x.device)
     bhi = torch.as_tensor(bhi, device=x.device)
     qe, be = q[..., None], bhi[..., None]
     while x.shape[-1] > 1:
         n = x.shape[-1]
-        pad = (-n) % 4
+        pad = (-n) % fold
         if pad:
             x = torch.cat([x, x.new_zeros(x.shape[:-1] + (pad,))], dim=-1)
-        x = x.reshape(x.shape[:-1] + ((n + pad) // 4, 4)).sum(dim=-1, dtype=torch.int64)
+        x = x.reshape(x.shape[:-1] + ((n + pad) // fold, fold)).sum(dim=-1, dtype=torch.int64)
         x = bred_add_lazy(x, qe, be)
     return bred_add(x[..., 0], q, bhi)

@@ -5,8 +5,9 @@ Counterpart of ``matrix_fhe_tpu/ops/wide_ntt.py``'s ``ntt_fwd``/``ntt_bwd``
 centered int32 pairs) and of the u64 ring's NTT of the JAX package: both
 compute the same function, the negacyclic NTT mod q of the reference
 (ring/ntt.go) with the output in bit-reversed order.  Here a residue is one
-64-bit word held in int64, canonical in [0, q), q < 2^61
-(``ops/modmath.py``), and the transform takes the tables of an
+64-bit word held in int64, canonical in [0, q), q < 2^61 + 2^55 (the wide
+path's range, ``ops/wide.py``; the u64 rings stop at 2^61), and the
+transform takes the tables of an
 ``ops/rings.py:Ring`` (its plain psi powers, each beside its Shoup
 quotient, ``psi2`` / ``ipsi2``):
 

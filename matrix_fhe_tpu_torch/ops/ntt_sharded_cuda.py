@@ -37,6 +37,12 @@ from matrix_fhe_tpu_torch.utils.device import resolve_device
 SOURCE = ntt_cuda._PKG / "csrc" / "ntt_sharded.cu"
 BUILD_KEY = 0  # the library's size key in ntt_cuda.library_path: one for all N
 MAX_COLS = 512  # csrc/ntt_sharded.cu: kMaxCols (N <= 2^18)
+# csrc/ntt_sharded.cu: the tiled kernel's CTA sizes, the terms a 128-bit sum
+# holds between reductions (kChunk) and the words of a copy stage
+# (kStageWords; a ring of two)
+THREADS = (128, 256)
+CHUNK = 64
+STAGE_WORDS = 2048
 
 # Kernel launches since the count was last reset.
 launches = 0
@@ -146,20 +152,67 @@ def check_input(x: torch.Tensor, tabs, col0: int) -> None:
         raise ValueError(f"no sharded NTT for device {x.device}")
 
 
+def geometry(rows: int, cols: int, c: int, threads: int | None = None, ti: int | None = None,
+             cn: int | None = None) -> tuple[int, ...]:
+    """(threads, ti, cn, kc1, s1, kc2), the tiled kernel's geometry for a
+    block of c >= 2 columns of the [rows, cols] view
+    (``mfhe_ntt_sharded_local`` states the limits).  ``threads``, ti and cn
+    (the CTA size, its output rows and a thread's tile of 2 x cn outputs)
+    are the rule's unless given, the fastest or within 6% of it at every
+    block ``tools/ntt_sharded_ab.py --sweep`` timed (N = 2^10, 2^12, 2^14,
+    2^16; k = 8, 2, 1): up to cols = 128, 128 threads, 2 x 2 tiles and 4
+    rows (640 CTAs at phase 26's [2, 10] blocks, ~5 a SM); from 256 on,
+    256 threads, 2 x 4 tiles where c allows and every thread one tile of
+    step 2 (ti x cols = 2 cn threads).  The rest follows: kc1, the rows of
+    the block a stage, as many as a stage holds (A's rows stay in shared
+    memory whole); s1, the threads that share a step-1 tile, as many as the
+    threads and kc1 allow; kc1 / s1 <= CHUNK terms a slice; kc2, the rows
+    of B^T a stage, at most CHUNK."""
+    wide = cols >= 256
+    if cn is None:
+        cn = 4 if wide and c % 4 == 0 else 2
+    if threads is None:
+        threads = THREADS[1] if wide else THREADS[0]
+    if ti is None:
+        ti = min(rows, 2 * cn * threads // cols, 4 if cols <= 128 else rows)
+    kc1 = 1
+    while 2 * kc1 <= rows and 2 * kc1 * c <= STAGE_WORDS:
+        kc1 *= 2
+    tiles1, s1 = (ti // 2) * max(1, c // cn), 1
+    while 2 * s1 * tiles1 <= threads and 2 * s1 <= kc1:
+        s1 *= 2
+    while kc1 > CHUNK * s1:
+        kc1 //= 2
+    kc2 = 1
+    while 2 * kc2 <= min(c, CHUNK) and 2 * kc2 * cols <= STAGE_WORDS:
+        kc2 *= 2
+    return threads, ti, cn, kc1, s1, kc2
+
+
+def candidates(rows: int, cols: int, c: int) -> list[tuple[int, int, int]]:
+    """Every (threads, ti, cn) the tiled kernel takes for a block of c
+    columns of [rows, cols]: ti a power of two from 2 to rows with
+    ti x cols <= 2 cn threads (below, threads idle in step 2), cn dividing
+    c."""
+    return [(t, 1 << e, cn) for cn in (2, 4) if c % cn == 0 for t in THREADS
+            for e in range(1, rows.bit_length()) if (1 << e) * cols <= 2 * cn * t]
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The kernel library, built at first use."""
     ntt_cuda.build([BUILD_KEY], SOURCE)
     lib = ctypes.CDLL(str(ntt_cuda.library_path(BUILD_KEY, SOURCE)))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.mfhe_ntt_sharded_local.argtypes = [p] * 8 + [i] * 7 + [p]
+    lib.mfhe_ntt_sharded_local.argtypes = [p] * 8 + [i] * 13 + [p]
     lib.mfhe_ntt_sharded_local.restype = i
     return lib
 
 
-def launch(x: torch.Tensor, tabs, col0: int) -> torch.Tensor:
+def launch(x: torch.Tensor, tabs, col0: int, geom: tuple[int, ...] | None = None) -> torch.Tensor:
     """Launch the kernel on a contiguous CUDA tensor that passed
-    ``check_input``.  The caller counts the launch."""
+    ``check_input``, at ``geometry``'s rule, or with the (threads, ti, cn)
+    of ``geom``.  The caller counts the launch."""
     L, R, C = int(tabs.moduli.shape[0]), tabs.rows, tabs.cols
     if C > MAX_COLS:
         raise NotImplementedError(f"N={tabs.n}: the sharded NTT kernel takes C <= {MAX_COLS}")
@@ -176,7 +229,8 @@ def launch(x: torch.Tensor, tabs, col0: int) -> torch.Tensor:
     dev = x.get_device()
     err = library().mfhe_ntt_sharded_local(
         x.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in ts), lead, L, R, C,
-        x.shape[-1], col0, dev, torch._C._cuda_getCurrentRawStream(dev))
+        x.shape[-1], col0, *geometry(R, C, x.shape[-1], *(geom or ())), dev,
+        torch._C._cuda_getCurrentRawStream(dev))
     if err:
         raise RuntimeError(f"sharded NTT kernel launch failed: CUDA error {err}")
     return out

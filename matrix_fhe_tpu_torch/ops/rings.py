@@ -73,19 +73,19 @@ def _words(values: list[int], device) -> torch.Tensor:
                         device=device)
 
 
-def _constants(q: int) -> dict:
-    """The reduction constants of one prime."""
-    mm.check_modulus(q)
+def _constants(q: int, limit: int = mm.MAX_MODULUS) -> dict:
+    """The reduction constants of one prime below ``limit``."""
+    mm.check_modulus(q, limit)
     if not pr.is_prime(q):
         raise ValueError(f"modulus {q} is not prime")
     bhi, blo = mm.gen_bred_constant(q)
     return {"qinv": mm.gen_mred_constant(q), "bhi": bhi, "blo": blo}
 
 
-def _gen_subring_tables(nth_root: int, q: int) -> dict:
+def _gen_subring_tables(nth_root: int, q: int, limit: int = mm.MAX_MODULUS) -> dict:
     """Per-prime NTT constants of a power-of-two ring, mirroring
     ring/subring.go:129-214."""
-    out = _constants(q)
+    out = _constants(q, limit)
     if q % nth_root != 1:
         raise ValueError(f"modulus {q} != 1 mod NthRoot={nth_root}")
     g, _ = pr.primitive_root(q)
@@ -348,9 +348,11 @@ class Ring:
 
 
 def new_ring(n: int, moduli: list[int], ring_type: str = STANDARD,
-             device="cuda") -> Ring:
+             device="cuda", max_modulus: int = mm.MAX_MODULUS) -> Ring:
     """RNS ring with freshly generated NTT tables on ``device`` (the card
-    unless told otherwise; ring/ring.go:264-308 NewRing / NewRingFromType)."""
+    unless told otherwise; ring/ring.go:264-308 NewRing / NewRingFromType).
+    Moduli stop at ``max_modulus``: 2^61, or the wide ring's 2^61 + 2^55
+    (``fast/wring.py``)."""
     if ring_type in (STANDARD, CONJUGATE_INVARIANT):
         if n < 16 or n & (n - 1):
             raise ValueError("N must be a power of two >= 16")
@@ -399,7 +401,7 @@ def new_ring(n: int, moduli: list[int], ring_type: str = STANDARD,
             raise ValueError(f"N={n}: no factorized split and too large for the dense 3N path")
         extra = dict(ntt3n=ntt3n, dense3n=dense)
     else:
-        tabs = [_gen_subring_tables(nth_root, q) for q in moduli]
+        tabs = [_gen_subring_tables(nth_root, q, max_modulus) for q in moduli]
         extra = {}
         if ring_type == CONJUGATE_INVARIANT:
             tabs = [_ci_kernel_tables(t, n, q) for t, q in zip(tabs, moduli)]

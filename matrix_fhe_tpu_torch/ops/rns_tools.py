@@ -20,8 +20,13 @@ term at a time, never as one reassociated ``sum()``, and each divisor is a
 tensor on the operand's device so the division is a true IEEE division (a
 CPU scalar divisor lets CUDA multiply by its reciprocal instead).
 
-Constants are int64 tensors of residues (< 2^61); ``gen_*`` put them on the
-card unless told otherwise.
+Constants are int64 tensors of residues; ``gen_*`` put them on the card
+unless told otherwise.  The moduli are below 2^61 on the u64 path and below
+2^61 + 2^55 on the wide one (``fast/wrns.py``); every lazy value formed
+here is a sum of at most four words below 2^61 + 2^55, so below 2^64, and
+goes only into a Montgomery product by a canonical constant (any 64-bit x
+times y < q stays below q 2^64: the output is in [0, 2q)) or a Barrett
+reduction, both of which read it unsigned.
 """
 
 from __future__ import annotations
@@ -53,7 +58,8 @@ def div_floor_by_last_modulus(ring: Ring, p: torch.Tensor) -> torch.Tensor:
     lvl = p.shape[-2] - 1
     c = _rescale_row(ring, lvl)[:, None]
     q, qinv = ring.moduli[:lvl, None], ring.qinv[:lvl, None]
-    # (x_l - x_i) * MForm(-ql^{-1}) = (x_i - x_l) ql^{-1} mod q_i
+    # (x_l - x_i) * MForm(-ql^{-1}) = (x_i - x_l) ql^{-1} mod q_i; the sum
+    # < ql + 2 q_i < 2^64
     return mm.mred(p[..., lvl:lvl + 1, :] + 2 * q - p[..., :lvl, :], c, q, qinv)
 
 
@@ -69,7 +75,8 @@ def div_round_by_last_modulus(ring: Ring, p: torch.Tensor) -> torch.Tensor:
     t = mm.cred(p[..., lvl:lvl + 1, :] + p_half, ql)
     q, qinv = ring.moduli[:lvl, None], ring.qinv[:lvl, None]
     c = _rescale_row(ring, lvl)[:, None]
-    # out = -(t - h - x_i) * ql^{-1} = (x_i + h - t) ql^{-1} mod q_i
+    # out = -(t - h - x_i) * ql^{-1} = (x_i + h - t) ql^{-1} mod q_i;
+    # acc < ql + 3 q_i < 2^64
     acc = t + (q - _half_mod(ring, lvl, p_half)) + (2 * q - p[..., :lvl, :])
     return mm.mred(acc, c, q, qinv)
 
@@ -165,7 +172,11 @@ def _mod_up_core(x: torch.Tensor, muc: ModUpConstants, src_q, src_qinv,
     v = vf.to(torch.int64)  # truncation toward zero, as Go's uint64(float64)
 
     # out_j = MRed(sum_i y_i * MForm(Q/qi mod pj)) + (-vQ mod pj): a 128-bit
-    # sum, then one Montgomery reduction (basis_extension.go:597-673 multSum)
+    # sum, then one Montgomery reduction (basis_extension.go:597-673 multSum).
+    # Its high word is below LQ max(qi) pj / 2^64, under pj while
+    # LQ max(qi) < 2^64 (8 source limbs below 2^61, 7 up to 2^61 + 2^55);
+    # beyond, `out` only passes [0, 3p) below, and bred_add takes any 64-bit
+    # word
     lp = muc.qoverqi_mod_p.shape[0]
     hi = y.new_zeros(y.shape[:-2] + (lp, y.shape[-1]))
     lo = torch.zeros_like(hi)

@@ -21,9 +21,11 @@ the wide path: a product is a*b mod q.  The plane helpers (``_bal12``,
 ``const_planes``, ``center_lift``, ...) and their tables have no
 counterpart: a word needs none of them.
 
-The port's words compare signed, so its moduli stop at 2^61
-(``modmath.MAX_MODULUS``); the JAX package admits up to 2^61 + 2^55.
-Moduli from 2^61 on raise here.
+The range is the JAX package's pair31 range, [2^41, 2^61 + 2^55): its
+"61-bit" primes alternate around 2^61.  Every lazy value of the wide path
+stays below 4q < 2^64 and is read unsigned (``ops/modmath.py``), and a
+modular sum folds 3 terms a round from 2^61 on (``modmath.sum_fold``).
+The u64 rings keep ``modmath.MAX_MODULUS`` = 2^61.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ from matrix_fhe_tpu_torch.ops import modmath as mm
 
 MIN_WIDE_MODULUS = 1 << 41
 PAIR25_MAX_MODULUS = 3 << 54        # 1.5 * 2^55: the JAX pair25 mode's limit
-MAX_WIDE_MODULUS = mm.MAX_MODULUS   # 2^61 (the JAX package: 2^61 + 2^55)
+MAX_WIDE_MODULUS = (1 << 61) + (1 << 55)  # the JAX package's pair31 limit
 
 
 def use_pair31(moduli) -> bool:
@@ -45,12 +47,13 @@ def use_pair31(moduli) -> bool:
 
 
 def check_moduli(moduli) -> tuple[int, ...]:
-    """The moduli as ints, each in [2^41, 2^61), or raise."""
+    """The moduli as ints, each in [2^41, 2^61 + 2^55), or raise (the JAX
+    package's ``build_wide_tables`` condition in its pair31 mode)."""
     moduli = tuple(int(q) for q in moduli)
     for q in moduli:
         if not MIN_WIDE_MODULUS <= q < MAX_WIDE_MODULUS:
-            raise ValueError(f"modulus {q} outside the wide path range [2^41, 2^61) of the "
-                             f"port (its 64-bit words compare signed)")
+            raise ValueError(f"modulus {q} outside the wide path range "
+                             f"[2^41, {MAX_WIDE_MODULUS}) (2^61 + 2^55)")
     return moduli
 
 

@@ -19,7 +19,8 @@ the k blocks each rank receives, which leaves the output column-sharded as
 the JAX package's ``psum_scatter`` + Barrett reduction does.  Not an int64
 reduce-scatter sum: the port's words are int64 and compare signed, and at a
 61-bit modulus eight canonical partials sum past 2^63; the modular sum is
-exact for every modulus the port admits (< 2^61) and any k <= 8.
+exact for every modulus the sharded tables admit (< 2^61, the u64 rings'
+limit, ``build_tables``) and any k <= 8.
 
 The output equals the JAX package's ``ntt_sharded`` and the ring's NTT bit
 for bit.

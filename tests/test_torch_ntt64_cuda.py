@@ -3,8 +3,9 @@ card, through ``ops/ntt64_cuda.py`` and the rings that launch it.
 
 Each test holds the kernel bit-exact against its plain version
 (``ntt64_cuda.ntt_fwd_plain``/``ntt_bwd_plain``) run on CPU copies of the
-same tensors.  Without a GPU every test here skips; this file imports no
-jax, so on a machine with a card and no jax it runs on its own:
+same tensors, at moduli up to the wide path's 2^61 + 2^55.  Without a GPU
+every test here skips; this file imports no jax, so on a machine with a
+card and no jax it runs on its own:
 
     python -m pytest tests/test_torch_ntt64_cuda.py -q -p no:cacheprovider \\
         --noconftest -o addopts=""
@@ -18,7 +19,7 @@ import torch
 
 import chip_smoke
 from matrix_fhe_tpu_torch.fast import wckks, wring
-from matrix_fhe_tpu_torch.ops import ntt64_cuda, rings
+from matrix_fhe_tpu_torch.ops import ntt64_cuda, rings, wide
 from matrix_fhe_tpu_torch.utils import launches
 from matrix_fhe_tpu_torch.utils import primes as pr
 
@@ -112,6 +113,44 @@ def test_wide_step_moduli_and_shapes(cuda, name):
         ring_dev = wring.new_wide_ring(n, list(moduli), device=cuda)
         for lead in leads:
             _check(_operands(lead, list(moduli), n, len(lead) + len(moduli)), ring_cpu, ring_dev)
+
+
+def _above_2_61(count: int) -> list[int]:
+    """The first primes above 2^61 that are 1 mod 2^18 (4N for N = 2^16:
+    both B4 modes at every N), all below the wide path's 2^61 + 2^55."""
+    out, q = [], 1 << 61
+    while len(out) < count:
+        q += 1 << 18
+        if pr.is_prime(q + 1):
+            out.append(q + 1)
+    assert out[-1] < wide.MAX_WIDE_MODULUS
+    return out
+
+
+@pytest.mark.parametrize("logn", range(6, 17))
+def test_moduli_above_2_61(cuda, logn):
+    """B4 at primes in [2^61, 2^61 + 2^55), where the forward's lazy words
+    reach 4q > 2^63: both modes (the standard ring, the wide path's, and the
+    CI ring), every cluster size, against the plain versions; a row of
+    q - 1 words (the largest lazy sums) among random ones."""
+    n = 1 << logn
+    moduli = _above_2_61(2) + [pr.NTTFriendlyPrimesGenerator(45, 1 << 18).next_alternating_prime()]
+    x = _operands((2,), moduli, n, logn)
+    x[0, 0] = moduli[0] - 1
+    for kind in (rings.STANDARD, rings.CONJUGATE_INVARIANT):
+        ring_cpu, ring_dev = (rings.new_ring(n, moduli, kind, device=d,
+                                             max_modulus=wide.MAX_WIDE_MODULUS)
+                              for d in ("cpu", cuda))
+        ci = kind == rings.CONJUGATE_INVARIANT
+        plain_f = ntt64_cuda.ntt_ci_fwd_plain if ci else ntt64_cuda.ntt_fwd_plain
+        plain_b = ntt64_cuda.ntt_ci_bwd_plain if ci else ntt64_cuda.ntt_bwd_plain
+        want_f, want_b = plain_f(x, ring_cpu), plain_b(x, ring_cpu)
+        for c in ntt64_cuda.clusters(n):
+            f = ntt64_cuda.launch(x.to(cuda), ring_dev, True, c, ci=ci)
+            b = ntt64_cuda.launch(x.to(cuda), ring_dev, False, c, ci=ci)
+            assert torch.equal(f.cpu(), want_f), (kind, c)
+            assert torch.equal(b.cpu(), want_b), (kind, c)
+        assert torch.equal(ring_dev.intt(ring_dev.ntt(x.to(cuda))).cpu(), x), kind
 
 
 # phase 16's launch shapes of the CI ring at logN 14 (55 + 45x6-bit Q, a

@@ -4,8 +4,9 @@ coefficient-sharded NTT, on the card, through ``ops/ntt_sharded_cuda.py``.
 Each test holds the kernel bit-exact against its plain version
 (``ntt_sharded_cuda.local_step_plain``) on the same CUDA tensors: at
 chip_smoke.py phase 26's shard shapes (N = 2^14, the flagship's 9 Q primes
-and its 61-bit P, lead 2, every block of k = 8, 2 and 1 shards),
-and at every N from 2^4 to 2^16 with 45-, 55- and 61-bit primes.  Without a
+and its 61-bit P, lead 2, every block of k = 8, 2 and 1 shards), at every
+N from 2^4 to 2^16 with 45-, 55- and 61-bit primes, at every geometry the
+tiled kernel takes, and at the one-column blocks of the simple kernel.  Without a
 GPU every test here skips; this file imports no jax, so on a machine with a
 card and no jax it runs on its own:
 
@@ -80,6 +81,46 @@ def test_sizes(cuda, logn):
     C = tabs.cols
     for k in sorted({1, 2, min(8, C)}):
         _check_blocks(x, tabs, k, sorted({0, k - 1}))
+
+
+@pytest.mark.parametrize("logn, k", [(4, 1), (4, 2), (5, 4), (10, 1), (10, 8), (14, 1),
+                                     (14, 8), (15, 2), (16, 1), (16, 8)])
+def test_every_geometry(cuda, logn, k):
+    """The tiled kernel at every (threads, ti, cn) it takes at the shape
+    (``ntt_sharded_cuda.candidates``): 2 x 2 and 2 x 4 tiles, CTAs of 2 to R
+    rows, threads idle in step 2 or not, step-1 tiles shared by 1 to 32
+    threads, one stage or many, sums reduced inside a stage or across
+    stages; each block against the plain version."""
+    n = 1 << logn
+    tabs = _tables(n, _moduli(n))
+    x = _words((2,), _moduli(n), n, logn + k).to(cuda)
+    c = tabs.cols // k
+    for i in sorted({0, k - 1}):
+        blk = sh.shard_columns(x, tabs, k, i).contiguous()
+        want = ntt_sharded_cuda.local_step_plain(blk, tabs, i * c)
+        for geom in ntt_sharded_cuda.candidates(tabs.rows, tabs.cols, c):
+            got = ntt_sharded_cuda.launch(blk, tabs, i * c, geom)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), f"2^{logn} k={k} block {i} {geom}"
+
+
+@pytest.mark.parametrize("logn", [4, 6, 8])
+def test_one_column_blocks(cuda, logn):
+    """c = 1 (R = C = 4 at N = 2^4, k = 4): the simple kernel, every block."""
+    n = 1 << logn
+    tabs = _tables(n, _moduli(n))
+    x = _words((3,), _moduli(n), n, logn).to(cuda)
+    _check_blocks(x, tabs, tabs.cols, range(tabs.cols))
+
+
+def test_refused_geometry(cuda):
+    n, moduli = 1 << 14, _moduli(1 << 14)
+    tabs = _tables(n, moduli)
+    blk = sh.shard_columns(_words((1,), moduli, n, 0).to(cuda), tabs, 8, 0).contiguous()
+    # 64 threads, ti 3, ti x C > 2 cn x threads (twice), cn 3
+    for geom in ((64, 4), (256, 3), (256, 32), (128, 8, 2), (128, 4, 3)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            ntt_sharded_cuda.launch(blk, tabs, 0, geom)
 
 
 def test_gathered_sum_is_the_ntt(cuda):

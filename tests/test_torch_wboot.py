@@ -16,8 +16,9 @@ tests/test_wboot.py's three cases:
   port alone, with its own keys.
 
 Also the presets and the chain check equal the JAX package's, and every
-prime of the presets the card runs (logN 14 and 16) lies below the port's
-2^61.
+prime of the presets the card runs (logN 14 and 16) lies below 2^61, the
+cap of the u64 rings that a bootstrap's parameters also build (the wide
+path itself admits up to 2^61 + 2^55, as the JAX package does).
 """
 
 import dataclasses
@@ -155,7 +156,7 @@ def test_presets_match_jax(make, args):
                                          ("wide61_parameters_literal", 16)])
 def test_preset_chains_below_2_61(make, log_n):
     """The chain the preset's parameters generate (the port's GenModuli):
-    every prime in [2^41, 2^61), so the port's cap costs it nothing."""
+    every prime in [2^41, 2^61), so the u64 rings' cap costs it nothing."""
     lit = getattr(PORT.fboot, make)(log_n)
     depth = mod1.ParametersLiteral(
         level_q=0, log_scale=lit.mod1_log_q, mod1_type=lit.mod1_type, k=lit.mod1_k,
@@ -169,6 +170,13 @@ def test_preset_chains_below_2_61(make, log_n):
 
 
 def test_check_wide_chain():
-    for bad in ((1 << 61) + 1, (1 << 23) - 15):
+    """The JAX package's range, [2^41, 2^61 + 2^55): a modulus above 2^61
+    passes, 2^61 + 2^55 and one below 2^41 are refused, by both packages."""
+    for bad in ((1 << 61) + (1 << 55), (1 << 23) - 15):
         with pytest.raises(ValueError, match="2\\^61"):
             PORT.fboot.check_wide_chain(SimpleNamespace(q=[bad], p=[]))
+        with pytest.raises(ValueError):
+            JAX.fboot.check_wide_chain(SimpleNamespace(q=[bad], p=[]))
+    for good in ((1 << 61) + 1, 1 << 41):
+        PORT.fboot.check_wide_chain(SimpleNamespace(q=[good], p=[]))
+        JAX.fboot.check_wide_chain(SimpleNamespace(q=[good], p=[]))

@@ -2,12 +2,12 @@
 
 tests/test_wide.py's and tests/test_wide61.py's cases on the same moduli
 (the reference's 45/55-bit primes, 56/60/61-bit bootstrapping primes and
-the range edges) and operands: each port op's words equal
-``wide.unpack_pair`` of the JAX package's op on the packed pairs, and the
-exact result in Python integers.  The pair conversions are the JAX
-package's, array for array.  The port stops at 2^61 (its words compare
-signed): a modulus from there on raises, where the JAX package's pair31
-mode admits up to 2^61 + 2^55.
+the range edges, the 61-bit prime above 2^61 included) and operands: each
+port op's words equal ``wide.unpack_pair`` of the JAX package's op on the
+packed pairs, and the exact result in Python integers.  The pair
+conversions are the JAX package's, array for array.  The wide path admits
+the JAX package's pair31 range, [2^41, 2^61 + 2^55); the u64 rings stop at
+2^61.
 """
 
 import numpy as np
@@ -17,6 +17,7 @@ import torch
 from matrix_fhe_tpu.ops import wide as jwide
 from matrix_fhe_tpu_torch.fast import wring
 from matrix_fhe_tpu_torch.ops import modmath as mm
+from matrix_fhe_tpu_torch.ops import rings
 from matrix_fhe_tpu_torch.ops import wide as pwide
 from matrix_fhe_tpu_torch.utils import primes as pr
 
@@ -24,8 +25,8 @@ N2 = 1 << 15
 PRIME61 = pr.NTTFriendlyPrimesGenerator(61, N2).next_alternating_prime()  # above 2^61
 MODULI = {
     "wide": [0x2000000A0001, 0x2000000E0001, 0x80000000080001, (1 << 41) + 9, (3 << 54) - 59],
-    # tests/test_wide61.py's, without its first prime (above 2^61, refused here)
-    "wide61": [pr.NTTFriendlyPrimesGenerator(60, N2).next_alternating_prime(),
+    # tests/test_wide61.py's
+    "wide61": [PRIME61, pr.NTTFriendlyPrimesGenerator(60, N2).next_alternating_prime(),
                pr.NTTFriendlyPrimesGenerator(56, N2).next_alternating_prime(),
                0x2000000A0001, (1 << 41) + 9, (1 << 61) - 59],
 }
@@ -70,16 +71,32 @@ def mods(request):
 
 
 def test_mode_rule_and_range():
+    """The JAX package's range (tests/test_wide61.py:56): up to 2^61 + 2^55,
+    exclusive; the wide ring takes the prime above 2^61, the u64 ring
+    refuses it."""
     for moduli in MODULI.values():
         assert pwide.use_pair31(moduli) == jwide.use_pair31(moduli)
         assert pwide.check_moduli(moduli) == tuple(moduli)
     assert not pwide.use_pair31([0x2000000A0001, 0x80000000080001])
-    assert PRIME61 >= 1 << 61
-    for bad in (PRIME61, (1 << 61) + (1 << 55) - 1, (1 << 41) - 1):
-        with pytest.raises(ValueError, match="2\\^61"):
+    assert 1 << 61 < PRIME61 < pwide.MAX_WIDE_MODULUS == jwide.MAX_WIDE_MODULUS
+    top = (1 << 61) + (1 << 55) - 1
+    assert pwide.check_moduli([top]) == (top,)
+    jwide.build_wide_tables([top])
+    for bad in ((1 << 61) + (1 << 55), (1 << 62), (1 << 41) - 1):
+        with pytest.raises(ValueError, match="wide path range"):
             pwide.check_moduli([bad])
+        with pytest.raises(ValueError):
+            jwide.build_wide_tables([bad], pair31=True)
+    # the largest NTT-friendly prime below the limit, at N = 2^6
+    near = (pwide.MAX_WIDE_MODULUS - 1) // (1 << 7) * (1 << 7) + 1
+    while not pr.is_prime(near):
+        near -= 1 << 7
+    for q in (near, PRIME61):
+        assert wring.new_wide_ring(1 << 6, [q], device="cpu").moduli_tuple == (q,)
     with pytest.raises(ValueError, match="2\\^61"):
-        wring.new_wide_ring(1 << 6, [PRIME61], device="cpu")
+        rings.new_ring(1 << 6, [PRIME61], device="cpu")
+    with pytest.raises(ValueError, match="wide path range"):
+        wring.new_wide_ring(1 << 6, [(1 << 61) + (1 << 55) + 1], device="cpu")
 
 
 def test_pack_unpack_roundtrip(mods):
@@ -166,5 +183,34 @@ def test_mac_depth8(mods):
     want = _words(np.stack([np.asarray(lo), np.asarray(hi)]), moduli)
     q, bhi, blo = _consts(moduli)
     prods = pwide.mulmod(q, bhi, blo, _t(np.stack(aa)), _t(np.stack(bb)))
-    got = mm.modsum(prods, q, bhi, dim=0)
+    got = mm.modsum(prods, q, bhi, dim=0, fold=mm.sum_fold(moduli))
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_modsum_fold(mods):
+    """A deep sum (the key-switch MAC's digit sum at many digits): 64 terms
+    of [0, 2q), among them q - 1 and 2q - 1, folded ``sum_fold`` terms a
+    round (3 from 2^61 on, where 4 terms of 2q - 1 pass 2^64), against
+    Python integers."""
+    moduli, _ = mods
+    q, bhi, _ = _consts(moduli)
+    m = np.array(moduli, dtype=np.uint64)[:, None]
+    x = np.stack([_operands(moduli, 40 + k) for k in range(64)])
+    x[::2] = m - 1
+    x[1::4] += m  # lazy: [q, 2q)
+    x[:, :, :4] = 2 * m - 1
+    want = np.array([[sum(int(v) for v in x[:, i, j]) % m for j in range(x.shape[-1])]
+                     for i, m in enumerate(moduli)], dtype=np.uint64).astype(np.int64)
+    fold = mm.sum_fold(moduli)
+    assert fold == (3 if max(moduli) >= 1 << 61 else 4)
+    got = mm.modsum(_t(x), q, bhi, dim=0, fold=fold)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_cred_edges(mods):
+    """cred at [0, 2q)'s edges, q up to 2^61 + 2^55."""
+    moduli, _ = mods
+    q = torch.tensor(moduli, dtype=torch.int64)[:, None]
+    x = np.array([[0, 1, m - 1, m, m + 1, 2 * m - 1] for m in moduli], dtype=np.uint64)
+    want = np.array([[int(v) % m for v in row] for row, m in zip(x, moduli)], dtype=np.int64)
+    np.testing.assert_array_equal(mm.cred(_t(x), q).numpy(), want)

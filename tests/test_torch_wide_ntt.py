@@ -109,7 +109,7 @@ def test_wrappers_check_their_input():
     with pytest.raises(ValueError):
         ntt64_cuda.ntt_fwd(torch.zeros(2, 32, dtype=torch.int64), ring)
     with pytest.raises(ValueError, match="2\\^61"):
-        pwide.check_moduli([(1 << 61) + 1])
+        pwide.check_moduli([(1 << 61) + (1 << 55)])
 
 
 # -- geometry ------------------------------------------------------------------

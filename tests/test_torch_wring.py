@@ -3,6 +3,12 @@
 tests/test_wring.py's seven cases in both of its modes, at logN 8 on JAX's
 keys and ciphertexts carried over: ``pair25`` on the exact PN14QP438 ladder
 (55 + 45x5-bit Q, 55x2-bit P) and ``pair31`` on 60/45-bit Q and 61-bit P.
+And ``bench61``: bench.py's wide61 moduli (its 60 + 45x5-bit Q and its
+61-bit P, whose first prime lies above 2^61, where the u64 rings stop) at
+logN 8, on the uniform keys and operands of ``make_synthetic_context`` from
+one seed in both packages: the Q and P rings' ops and NTT, the rescale, the
+tensor, the full step and hoisted rotations, each hashing to the JAX
+package's digest.
 Each case (ring ops and the NTT, the rescale, the tensor, the full
 mul_relin_rescale step, a rotation, hoisted rotations, the step at a lower
 level) runs over a namespace of modules: its outputs, as words, hash to the
@@ -17,6 +23,7 @@ from types import SimpleNamespace
 import jax
 import numpy as np
 import pytest
+import torch
 
 from matrix_fhe_tpu.rlwe import encryptor as jenc
 from matrix_fhe_tpu.rlwe import keys as JK
@@ -132,6 +139,59 @@ MODES = ("pair25", "pair31")
 CASES = {f"{name}[{mode}]": (lambda m, c, fn=fn, mode=mode: fn(m, getattr(c, mode)))
          for mode in MODES for name, fn in SESSION_CASES.items()}
 
+# bench.py's wide61 moduli (make_synthetic_context(14, 6, 2, q_bits=(60,) +
+# (45,) * 8, p_bits=61)): every prime is 1 mod 2^15, so they serve logN 8
+BENCH61 = ((1152921504606748673, 35184372121601, 35184372744193, 35184373006337,
+            35184371138561, 35184370941953), (2305843009214414849, 2305843009211662337))
+
+
+def _bench61(m, c):
+    """The synthetic wide context at BENCH61 and its four operands in the
+    package of ``m``, made once."""
+    cache = c.__dict__.setdefault("bench61", {})
+    if id(m) not in cache:
+        kw = {} if m is JAX else {"device": "cpu"}
+        cache[id(m)] = m.wckks.make_synthetic_context(LOGN, 0, 0, moduli=BENCH61, seed=0,
+                                                      num_rot=2, **kw)
+    return cache[id(m)]
+
+
+def _bwords(m, ring, y):
+    """A wide ring's operand as words (the JAX package's pair31 pairs unpacked)."""
+    if m is not JAX:
+        return y
+    y = np.asarray(y)
+    return m.wide.unpack_pair(y, ring.moduli_tuple[: y.shape[-2]], True)
+
+
+def _bench61_ring_ops(m, c):
+    ctx, (c0, c1, _, _) = _bench61(m, c)
+    out = []
+    for ring, a, b in ((ctx.ring_q, c0, c1), (ctx.ring_p, ctx.rlk_p[0, 0], ctx.rlk_p[0, 1])):
+        out += [_bwords(m, ring, y) for y in (
+            ring.add(a, b), ring.sub(a, b), ring.mul_coeffs_montgomery(a, b), ring.ntt(a),
+            ring.intt(a))]
+    return out
+
+
+BENCH_CASES = {
+    "ring_ops": _bench61_ring_ops,
+    "rescale": lambda m, c: [_bwords(m, _bench61(m, c)[0].ring_q,
+                                     m.wrns.div_round_by_last_modulus_many_ntt(
+                                         _bench61(m, c)[0].ring_q, _bench61(m, c)[1][0], 1))],
+    "tensor": lambda m, c: [_bwords(m, _bench61(m, c)[0].ring_q, y)
+                            for y in m.wckks.tensor(*_bench61(m, c)[:1], *_bench61(m, c)[1])],
+    "full_step": lambda m, c: [_bwords(m, _bench61(m, c)[0].ring_q, y)
+                               for y in m.wckks.mul_relin_rescale(*_bench61(m, c)[:1],
+                                                                  *_bench61(m, c)[1])],
+    "hoisted_rotations": lambda m, c: [
+        _bwords(m, _bench61(m, c)[0].ring_q, y)
+        for g, pair in sorted(m.wckks.rotations_hoisted(
+            _bench61(m, c)[0], *_bench61(m, c)[1][:2], _bench61(m, c)[0].gal_els).items())
+        for y in pair],
+}
+CASES.update({f"{name}[bench61]": fn for name, fn in BENCH_CASES.items()})
+
 # tools/port_circuit_digests.py: the JAX package's outputs of CASES
 DIGESTS = {
     "ring_ops[pair25]": "55c87b1ee530bf8a8c7562d92b1a579cdc6d2b8819d12931e8f612bef75076ea",
@@ -148,6 +208,11 @@ DIGESTS = {
     "rotation[pair31]": "78cc96455c626765624404af640fa0bcef79bf2c69c8b11b3f06c287844b393b",
     "hoisted_rotations[pair31]": "78cc96455c626765624404af640fa0bcef79bf2c69c8b11b3f06c287844b393b",
     "at_level_step[pair31]": "a0d3e020da0b664df75d308693c91f6c052c29a76281bf69e0b94ffb6940cf4e",
+    "ring_ops[bench61]": "3b9cab3ea27640f29e47bc457080aa757f1fa26c50e421bf99be3e8a1b9e6ea4",
+    "rescale[bench61]": "a2714e1814f27ea83015af0a37a3d175fe30db75d570d5b3c7a19e1d4333ca75",
+    "tensor[bench61]": "113c3d282643e2cf0f10b6f274ec435ad8df6d6ed9c037874d4baf744b14f56d",
+    "full_step[bench61]": "ae4eb3e93c596bbafab1a088d0b8f4d887212a48a29f3c47eb949a96d695e1e7",
+    "hoisted_rotations[bench61]": "4468ae09179e644d1a5378012d39c3e0de8db1a551a7ba11cb7379cbfe29e20b",
 }
 
 
@@ -197,6 +262,15 @@ def test_wide_step(ctx, name, mode):
         out = ev.rescale(ev.mul_relin(*s.cts)).with_value(tuple(got))
         dec = PORT.ckks.Encoder(s.params).decode(PORT.dec.decrypt(s.params, s.sk, out))
         np.testing.assert_allclose(dec[: s.params.max_slots].real, s.v[0] * s.v[1], atol=2e-3)
+
+
+@pytest.mark.parametrize("name", list(BENCH_CASES))
+def test_bench61_step(ctx, name):
+    """bench.py's wide61 moduli, its P above 2^61: bit-identical to the JAX
+    package (the digest), canonical words."""
+    got = check_case(CASES, DIGESTS, f"{name}[bench61]", ctx)
+    for y in got:
+        assert y.dtype == torch.int64 and int(y.min()) >= 0
 
 
 @pytest.mark.parametrize("mode", MODES)

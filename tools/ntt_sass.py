@@ -1,6 +1,6 @@
 """Instructions a butterfly of the NTT kernels' passes, from the built SASS.
 
-    python tools/ntt_sass.py [--out PATH] [--b4 | --b5] [--nvcc-flag FLAG ...]
+    python tools/ntt_sass.py [--out PATH] [--b4 | --b5 | --b6 [--old PATH]] [--nvcc-flag FLAG ...]
 
 Builds (or loads) the port's kernel libraries (``csrc/ntt.cu``, one for each
 N, through ``ops/ntt_cuda.build()``), disassembles them with
@@ -39,6 +39,20 @@ radix-3 butterfly (3 products); the hot radix-2^k pass is the one with the
 most butterflies (R = 3: 12).  Its instructions a butterfly, and a radix-3
 butterfly, are the kernel's own cost, held beside the 15 multiply-adds of
 a Shoup product (``chip_smoke.py``'s bound).
+``--b6``: kernel B6 (``csrc/ntt_sharded.cu``, ``tiled_kernel<threads, cn>``
+and ``simple_kernel``; one library for all N), and with ``--old PATH`` another
+version of its source too (the parent's ``local_step_kernel``, written by
+``git show``).  A loop of a product is an innermost loop whose shared (or
+generic) loads feed 64-bit wide multiplies (``IMAD.WIDE``, at least one a
+word loaded); its multiply-accumulates are the words it loads over
+the words a MAC of the kernel's layout (``b6_words_a_mac``: (2 + cn) /
+(2 cn) for the tiled kernel's 2 x cn tiles, 2 + cn words a term of 2 cn
+MACs; 2 for the parent's one output a thread).  The tiled kernel's step-2 loops read their
+left pair with 16-byte loads only (``LDS.128``), its step-1 loops A's rows
+with 8-byte ones; the parent's step 1 comes before its step 2.  The hot
+loop of each product is its loop with the most MACs; its instructions a
+MAC are the kernel's cost, held beside the 8 multiply-adds a MAC of
+``chip_smoke.py``'s bound.
 ``--nvcc-flag FLAG`` (repeatable): build the libraries again with FLAG
 added to the port's flags, into a temporary directory, and print ptxas's
 registers and spills for each kernel beside the as-built ones (a register
@@ -68,6 +82,16 @@ _FUNC = re.compile(r"^\s*Function : (\S+)")
 _INSTR = re.compile(r"^\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 _KERNEL = re.compile(r"(ntt(?:64)?_(?:fwd|bwd)_kernel)ILi(\d+)ELi(\d+)E(?:Lb([01])E)?")
 _KERNEL3N = re.compile(r"(ntt3n_(?:fwd|bwd)_kernel)(?:ILi(\d+)E)?")
+_KERNEL6 = re.compile(r"(tiled_kernel|simple_kernel|local_step_kernel)(?:ILi(\d+)ELi(\d+)E)?")
+
+
+def b6_words_a_mac(name: str) -> float | None:
+    """Shared words a MAC of a B6 kernel's hot loops (None: not a B6 kernel
+    with MAC loops)."""
+    if name.startswith("tiled_kernel<"):
+        cn = int(name[:-1].split(", ")[1])
+        return (2 + cn) / (2 * cn)
+    return 2 if name == "local_step_kernel" else None
 
 
 def _cuobjdump() -> str:
@@ -86,6 +110,9 @@ def label(mangled: str) -> str:
     m = _KERNEL3N.search(mangled)
     if m:
         return f"{m.group(1)}<{m.group(2)}>" if m.group(2) else m.group(1)
+    m = _KERNEL6.search(mangled)
+    if m:
+        return f"{m.group(1)}<{m.group(2)}, {m.group(3)}>" if m.group(2) else m.group(1)
     return mangled
 
 
@@ -189,6 +216,47 @@ def b5_passes(instrs: list[tuple[int, str]]) -> dict[str, tuple[int, int]]:
     return out
 
 
+def _lds_words(op: str) -> float:
+    """64-bit words a shared or generic load reads (``LDS``, ``LDS.64``,
+    ``LD.E.128``, ...): a stage read through a generic pointer counts too."""
+    if not (op.startswith("LDS") or op.startswith("LD.")):
+        return 0
+    bits = re.search(r"\.(64|128)", op)
+    return int(bits.group(1)) / 64 if bits else 0.5
+
+
+def b6_loops(name: str, instrs: list[tuple[int, str]]) -> dict[str, dict]:
+    """{"step 1": ..., "step 2": ...}: B6's hot loop of each product (see the
+    module's docstring), each {"instructions", "macs", "wide", "mix"}; a
+    product with no loop found is left out."""
+    base = name.split("<")[0]
+    per_mac = b6_words_a_mac(name)
+    if per_mac is None:
+        return {}
+    found = []
+    for lo, hi in loops(instrs):
+        body = [opcode(t) for a, t in instrs if lo <= a <= hi]
+        words = sum(_lds_words(op) for op in body)
+        wide = sum(op.startswith("IMAD.WIDE") for op in body)
+        if words and wide >= words:
+            found.append((lo, body, words / per_mac, wide))
+    if not found:
+        return {}
+    if base == "tiled_kernel":
+        steps = {"step 1": [f for f in found if any(op.startswith("LDS.64") for op in f[1])],
+                 "step 2": [f for f in found if not any(op.startswith("LDS.64") for op in f[1])]}
+    else:
+        found.sort(key=lambda f: f[0])
+        steps = {"step 1": found[:1], "step 2": found[-1:]}
+    out = {}
+    for step, fs in steps.items():
+        if fs:
+            _, body, macs, wide = max(fs, key=lambda f: f[2])
+            out[step] = {"instructions": len(body), "macs": macs, "wide": wide,
+                         "mix": collections.Counter(body).most_common(8)}
+    return out
+
+
 def ptxas_report(log: str) -> dict[str, dict[str, int]]:
     """kernel label -> registers and spill bytes, from ``nvcc -Xptxas -v``."""
     out: dict[str, dict[str, int]] = {}
@@ -237,10 +305,14 @@ def main() -> int:
     ap.add_argument("--out", default=str(ntt_cuda.BUILD_DIR / "ntt_sass.txt"))
     ap.add_argument("--b4", action="store_true", help="kernel B4, csrc/ntt64.cu")
     ap.add_argument("--b5", action="store_true", help="kernel B5, csrc/ntt3n.cu")
+    ap.add_argument("--b6", action="store_true", help="kernel B6, csrc/ntt_sharded.cu")
+    ap.add_argument("--old", default=None, help="with --b6: another B6 source")
     ap.add_argument("--nvcc-flag", action="append", default=[],
                     help="build again with this flag added, and print ptxas's report")
     args = ap.parse_args()
-    from matrix_fhe_tpu_torch.ops import ntt3n_cuda, ntt64_cuda
+    from matrix_fhe_tpu_torch.ops import ntt3n_cuda, ntt64_cuda, ntt_sharded_cuda
+    if args.b6:
+        return main_b6(args, ntt_sharded_cuda)
     source, logns = (ntt64_cuda.SOURCE, ntt64_cuda.LOGNS) if args.b4 else \
         (ntt3n_cuda.SOURCE, [ntt3n_cuda.BUILD_KEY]) if args.b5 else \
         (ntt_cuda.SOURCE, ntt_cuda.LOGNS)
@@ -272,6 +344,36 @@ def main() -> int:
             mix = ", ".join(f"{op} {c}" for op, c in collections.Counter(body).most_common(8))
             print(f"  pass of {len(body)} instructions, {prods} Shoup products, "
                   f"{len(body) / prods:.2f} a product: {mix}")
+    return 0
+
+
+def main_b6(args, ntt_sharded_cuda) -> int:
+    sources = {"": ntt_sharded_cuda.SOURCE}
+    if args.old:
+        sources["old "] = Path(args.old).resolve()
+    key = [ntt_sharded_cuda.BUILD_KEY]
+    texts = []
+    for tag, source in sources.items():
+        sass = disassemble(key, source)
+        texts.append(sass)
+        regs = ptxas_report(build_logs(key, source))
+        for name, instrs in sorted(parse(sass).items()):
+            r = regs.get(name, {})
+            print(f"{tag}{name} ({source.name}): {len(instrs)} instructions, "
+                  f"{r.get('registers', '?')} registers, {r.get('spill_bytes', '?')} spill bytes")
+            for step, h in b6_loops(name, instrs).items():
+                mix = ", ".join(f"{op} {c}" for op, c in h["mix"])
+                print(f"  {step} hot loop: {h['instructions']} instructions / {h['macs']:g} MACs "
+                      f"= {h['instructions'] / h['macs']:.2f} a MAC ({h['wide']} wide "
+                      f"multiplies, {h['wide'] / h['macs']:.2f} a MAC): {mix}")
+            if args.nvcc_flag:
+                w = ptxas_with(key, source, args.nvcc_flag).get(name, {})
+                print(f"  with {' '.join(args.nvcc_flag)}: {w.get('registers', '?')} registers, "
+                      f"{w.get('spill_bytes', '?')} spill bytes")
+    out = Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text("".join(texts))
+    print(f"SASS -> {out}")
     return 0
 
 

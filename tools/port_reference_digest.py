@@ -23,9 +23,9 @@ bench.py's two wide shapes at logN 14, each with 8 galois keys
 (``num_rot=8``): PN14QP438 (``make_synthetic_context(14, 0, 0,
 moduli=(PN14QP438_Q, PN14QP438_P), num_rot=8)``) and wide61, bench.py's
 ``make_synthetic_context(14, 6, 2, q_bits=(60,) + (45,) * 8, p_bits=61)``
-with its Q and with P the two largest 61-bit NTT-friendly primes below
-2^61 (``WIDE61_Q``, ``WIDE61_P``): bench.py's first 61-bit prime at logN 14,
-2305843009214414849, lies above 2^61, where the port's words stop.  The
+with its own Q and P (``WIDE61_Q``, ``WIDE61_P``): P's first prime,
+2305843009214414849, lies above 2^61, below the wide path's limit
+2^61 + 2^55.  The
 digests are over the canonical words (``wide.unpack_pair`` of the pairs) as
 little-endian int64, the form of the port's wide ring.  Name shapes after
 ``wide`` to run only those.
@@ -61,7 +61,7 @@ def digest(arrays) -> str:
 
 WIDE61_Q = (1152921504606748673, 35184372121601, 35184372744193, 35184373006337,
             35184371138561, 35184370941953)
-WIDE61_P = (2305843009211662337, 2305843009211596801)
+WIDE61_P = (2305843009214414849, 2305843009211662337)
 WIDE_SHAPES = {
     "pn14qp438": lambda wckks: wckks.make_synthetic_context(
         LOGN, 0, 0, moduli=(wckks.PN14QP438_Q, wckks.PN14QP438_P), seed=SEED,
