@@ -331,6 +331,24 @@ process (parallel/launch.py), on the one card:
     B6; B1 and B4 are then held to their plain versions at each, and B6
     must have run only at blocks held above.  Their launches in the ranks
     join the kernels line's launches_by_path.
+
+27. the staged bootstrap (circuits/ckks/staged.py: one CUDA graph a stage,
+    captured at its first call and replayed) on phase 9's fast session
+    (run right after phase 9, no new keygen) and on phase 12's wide one
+    (right after phase 13): the first call's time split into its eager
+    warm-up, the capture with the graph's instantiation, and the replays;
+    phase 9's (12's) input and a second one of the same level and scale
+    (another vector, encrypted in the same session) each equal to
+    bts.bootstrap on the card bit for bit; each stage equal to the same
+    stage run eagerly (run_stages(eager=True)) on both inputs, and head,
+    c2s_tail and the last stage equal to boot_stages' ModUp,
+    CoeffsToSlots and SlotsToCoeffs; the B1 and B4 kernel nodes of the
+    graphs, each counted as often as a bootstrap replays it (utils/
+    launches.py:graph_nodes), equal to the eager bootstrap's launches; no
+    wrapper launch in a replayed bootstrap; the median of 5 staged
+    bootstraps (host clock around work ending in a synchronize) and their
+    device time queued, beside phase 9's (12's) eager warm median; the
+    graphs and replays a bootstrap, and the peak device memory.
 Before the kernels line, one "phase time: <n> <seconds>" line a phase (a
 phase's continuation, the B4 checks after its group, counts to it; the
 builds to phase 2).
@@ -341,11 +359,11 @@ w22; counts zeroed just before each run and read just after; ntt_fwd/ntt_bwd
 also give launches_by_path: phase 4's, phase 8's cold pass, and phase 9's
 bootstrap and evaluate apart; ntt64_fwd/ntt64_bwd, kernel B4, phase 11's
 three PN14QP438 requests, with launches_by_path over phases 8, 9, 11, 12,
-13 and 17-25; ntt3n_fwd/ntt3n_bwd, kernel B5, phase 15's operations, with
-launches_by_path over its keygen and each operation; ntt64_ci_fwd /
-ntt64_ci_bwd, B4 on the CI ring, phase 16's session, by stage, phase
-18's CI side and phase 25's scheme switching; ntt_sharded_local, kernel B6,
-the 8 launches of phase 26's 8-rank NTT, one a rank, with launches_by_path
+13 and 17-25 and phase 27's kernel nodes; ntt3n_fwd/ntt3n_bwd, kernel B5,
+phase 15's operations, with launches_by_path over its keygen and each
+operation; ntt64_ci_fwd / ntt64_ci_bwd, B4 on the CI ring, phase 16's
+session, by stage, phase 18's CI side and phase 25's scheme switching;
+ntt_sharded_local, kernel B6, the 8 launches of phase 26's 8-rank NTT, one a rank, with launches_by_path
 over its worlds; B1's and B4's launches_by_path also count phase 26's
 ranks), max
 |kernel - plain| (phases 3 and 9 for B1, 10 for B4, 14 for B5, 16 for B4
@@ -449,6 +467,8 @@ SESSION_LAUNCHES = {
 # scale 2^15 decodes to noise there too and is printed beside it; the floor
 # holds the mean of the others to JAX's less 1 bit.
 BOOT_REPEATS = 3
+# Phase 27: the staged bootstrap's replays timed (the median is reported)
+STAGED_REPEATS = 5
 BOOT_JAX_PRECISION = {"dft round trip 2^15": (-9.3225, -11.5838),
                       "dft round trip 2^34": (9.6485, 7.3162),
                       "eval_mod": (0.0826, -6.3947)}
@@ -1139,6 +1159,134 @@ def check_ntt_shapes(shapes: dict, dev, rng) -> list:
     return rows
 
 
+# -- phase 27: the staged bootstrap, one CUDA graph a stage ----------------------------------
+
+def staged_input(bts, sk, site: int):
+    """A second input of the bootstrap, of the first one's level and scale:
+    another vector, encrypted in the same session (draw site ``site``); as
+    int32 limbs for the fast bootstrapper, u64 words for the wide one."""
+    from matrix_fhe_tpu_torch.fast import feval
+    from matrix_fhe_tpu_torch.rlwe import encryptor
+    p = bts.p
+    v = np.random.default_rng(site).uniform(-1, 1, p.params.max_slots)
+    ct = encryptor.encrypt(_gen(site), p.params, sk, bts.enc.encode(v, level=p.residual_level))
+    return feval.ct_to_fast(ct) if isinstance(bts.enc, feval.FastEncoder) else ct
+
+
+def graph_counts(st) -> dict:
+    """The nodes of a StagedBootstrapper's graphs, each graph counted as
+    often as one bootstrap replays it: B1's and B4's kernel nodes by
+    direction, all kernel nodes, the other nodes (copies, fills), the
+    replays and the graphs."""
+    from matrix_fhe_tpu_torch.utils import launches
+    out = {"B1": {"fwd": 0, "bwd": 0}, "B4": {"fwd": 0, "bwd": 0}, "kernels": 0, "other": 0,
+           "replays": len(st.graphs), "graphs": len({id(g) for g in st.graphs})}
+    nodes = {}
+    for g in st.graphs:
+        assert len(g.entries) == 1, f"stage {g.name}: {len(g.entries)} signatures"
+        if id(g) not in nodes:
+            nodes[id(g)] = launches.graph_nodes(next(iter(g.entries.values())).graph)
+        for name in nodes[id(g)]:
+            if name.startswith("node type"):
+                out["other"] += 1
+                continue
+            out["kernels"] += 1
+            for d in ("fwd", "bwd"):
+                out["B1"][d] += f"ntt_{d}_kernel" in name
+                out["B4"][d] += f"ntt64_{d}_kernel" in name
+    return out
+
+
+def staged_phase(path: str, s: dict, rows, sk, site: int, dev, smi: str) -> dict:
+    """Phase 27 on one path: ``s`` holds phase 9's (or 12's) bootstrapper
+    ``bts``, its input ``ct``, its eager output ``boot``, the eager
+    bootstrap's launches ``counts`` and its warm ``repeats``; ``rows`` are
+    boot_stages' of ``ct``.  The staged bootstrapper's first call (eager
+    warm-up, capture, replay, timed apart), the two inputs held to the eager
+    bootstrap bit for bit, each stage held to the eager stage, the graphs'
+    kernel nodes held to the eager launches, the replays' times and the
+    peak memory.  On the CPU (a dry run: stub the torch.cuda memory calls,
+    _device_ms and graph_counts) the stages run eagerly."""
+    from matrix_fhe_tpu_torch.circuits.ckks import staged
+    bts, ct = s["bts"], s["ct"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    st = staged.StagedBootstrapper(bts)
+    t0 = time.perf_counter()
+    (first, b1_first), b4_first = _b4_counted(dev, lambda: _counted(dev, lambda: st(ct)))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    seconds = [e.seconds for g in {id(g): g for g in st.graphs}.values()
+               for e in g.entries.values()]
+    warm_s = sum(x["warm-up"] for x in seconds)
+    capture_s = sum(x["capture"] for x in seconds)
+    assert _same(first, s["boot"]), f"{path}: staged bootstrap != bootstrap"
+
+    # a second input through the same graphs, against the eager bootstrap
+    ct2 = staged_input(bts, sk, site)
+    (eager2, b1_eager), b4_eager = _b4_counted(dev, lambda: _counted(
+        dev, lambda: bts.bootstrap(ct2)))
+    (out2, b1_replay), b4_replay = _b4_counted(dev, lambda: _counted(dev, lambda: st(ct2)))
+    assert _same(out2, eager2), f"{path}: staged bootstrap of a second input != bootstrap"
+    assert not _same(out2, first)
+    eager = {"B1": b1_eager, "B4": b4_eager}
+    for k, c in s["counts"].items():  # phase 9's or 12's count of one bootstrap
+        assert eager[k] == c, f"{path}: {k} launches {eager[k]} != {c}"
+    # no stage runs eagerly: a replayed bootstrap passes through no wrapper (on
+    # the CPU, a dry run, every stage is eager)
+    if dev.type == "cuda":
+        assert b1_replay == b4_replay == {"fwd": 0, "bwd": 0}, (b1_replay, b4_replay)
+
+    # stage by stage: against the eager stages, and ct's against boot_stages'
+    for c in (ct, ct2):
+        got, want = list(st.run_stages(c)), list(st.run_stages(c, eager=True))
+        assert [n for n, _ in got] == [n for n, _ in want]
+        for (name, a), (_, b) in zip(got, want):
+            assert _same(a, b), f"{path}: stage {name} != the eager stage"
+    by_stage = dict(st.run_stages(ct))
+    by_row = {r[0]: r[1] for r in rows}
+    for stage, row in (("head", "ModUp"), ("c2s_tail", "CoeffsToSlots"),
+                       (list(by_stage)[-1], "SlotsToCoeffs")):
+        assert _same(by_stage[stage], by_row[row]), f"{path}: stage {stage} != {row}"
+
+    nodes = graph_counts(st)
+    for k in ("B1", "B4"):
+        assert nodes[k] == eager[k], f"{path}: {k} nodes {nodes[k]} != launches {eager[k]}"
+    assert sum(nodes["B1"].values()) + sum(nodes["B4"].values()) > 0
+
+    reps = []
+    for _ in range(STAGED_REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st(ct2)
+        torch.cuda.synchronize()
+        reps.append((time.perf_counter() - t0) * 1e3)
+    device = _device_ms(lambda: st(ct2), iters=STAGED_REPEATS, warmup=1)
+    peak = torch.cuda.max_memory_allocated() - held
+    eager_ms = statistics.median(s["repeats"])
+    names = [n for n, _ in st.run_stages(ct2)]
+    print(f"phase staged: {path}: {nodes['graphs']} graphs, {nodes['replays']} replays a "
+          f"bootstrap, stages {', '.join(names)} | {smi}")
+    print(f"phase staged: {path}: first call {first_s * 1e3:.3f} ms: eager warm-up "
+          f"{warm_s * 1e3:.3f} ms, capture + instantiate {capture_s * 1e3:.3f} ms, the "
+          f"replays and copies {(first_s - warm_s - capture_s) * 1e3:.3f} ms; wrapper "
+          f"launches in it B1 {b1_first}, B4 {b4_first} | {smi}")
+    print(f"phase staged: {path}: bootstrap of two inputs == bts.bootstrap bit for bit, "
+          f"every stage == the eager stage; B1 kernel nodes {nodes['B1']}, B4 kernel nodes "
+          f"{nodes['B4']} == the eager bootstrap's launches; {nodes['kernels']} kernel nodes "
+          f"and {nodes['other']} other nodes a bootstrap; 0 wrapper launches in a replayed "
+          f"bootstrap | {smi}")
+    print(f"phase staged: {path}: staged bootstrap, {STAGED_REPEATS} replays: "
+          f"{', '.join(f'{t:.3f}' for t in reps)} ms, median {statistics.median(reps):.3f} ms "
+          f"(device time queued {device:.3f} ms a bootstrap); eager warm median "
+          f"{eager_ms:.3f} ms ({len(s['repeats'])} repeats) | {smi}")
+    print(f"phase staged: {path}: peak device memory {peak / 2**20:.1f} MiB above the "
+          f"{held / 2**20:.1f} MiB the earlier phases hold | {smi}")
+    del st
+    return {"nodes": nodes, "median_ms": statistics.median(reps), "eager_ms": eager_ms}
+
+
 
 # -- phases 10-13: the wide path (41-61-bit primes) and kernel B4 ------------------
 
@@ -1622,6 +1770,7 @@ def wide_phases(dev, smi: str, rng, sms: int, int32_ops_per_s: float, clock: Pha
     to_hold["wide boot"] = {"keys": _tree_digest((wsk, wevk)),
                          **{k: wboot[k] for k in CPU_REFERENCES["wide boot"] if k != "keys"}}
     assert floor_met, "wide bootstrap: decoded precision below the JAX package's criterion"
+    wrepeats = wwarm["repeats"]
     del wwarm, wkeys2
 
     clock.done(12)
@@ -1693,7 +1842,12 @@ def wide_phases(dev, smi: str, rng, sms: int, int32_ops_per_s: float, clock: Pha
                    "phases 8-13")
     return {"size_rows": size_rows, "shape_rows": shape_rows, "stats": b4_stats,
             "by_path": by_path, "loss": loss, "to_hold": to_hold,
-            "wide_boot": {"p": wp, "sk": wsk, "evk": wevk, "bts": wboot["bts"]}}
+            "wide_boot": {"p": wp, "sk": wsk, "evk": wevk, "bts": wboot["bts"],
+                          # for phase 27
+                          "ct": wboot["ct"], "boot": wout, "repeats": wrepeats,
+                          "counts": {"B4": wboot["counts"]["bootstrap"],
+                                     "B1": {"fwd": 0, "bwd": 0}},
+                          "stage_rows": wrows}}
 
 # -- phases 14-16: the fork's rings: B5, Matrix-CKKS at N = 12288, CKKS on the CI ring --
 
@@ -4016,7 +4170,7 @@ def main() -> int:
 
 
 def run(refs: CPUReferences) -> int:
-    """Phases 1-25 on the card; ``refs``: the CPU references."""
+    """Phases 1-27 on the card; ``refs``: the CPU references."""
     from matrix_fhe_tpu_torch.fast import fckks, fring
     from matrix_fhe_tpu_torch.ops import ntt_cuda, ntt_plain, ntt_w22
 
@@ -4480,12 +4634,23 @@ def run(refs: CPUReferences) -> int:
     to_hold = {"boot": {"keys": _tree_digest((bsk, bevk)),
                      **{k: boot[k] for k in CPU_REFERENCES["boot"] if k != "keys"}}}
     boot_counts = boot["counts"]
-    del boot, bwarm
-
     clock.done(9)
+
+    # -- 27. the staged bootstrap on phase 9's session (the wide one after phase 13) --------
+    staged27 = {"fast": staged_phase(
+        "fast FAST_N14", dict(boot, counts={"B1": boot_counts["bootstrap"]},
+                              repeats=bwarm["repeats"]), rows, bsk, 127, dev, smi)}
+    del boot, bwarm
+    clock.done(27)
     b4 = wide_phases(dev, smi, rng, sms, int32_ops_per_s, clock, b4_calls, b4_launches)
     to_hold.update(b4.pop("to_hold"))
     clock.done(13)
+    wb = b4["wide_boot"]
+    staged27["wide"] = staged_phase(f"wide wide_parameters_literal({LOGN})", wb,
+                                    wb.pop("stage_rows"), wb["sk"], 227, dev, smi)
+    for k in ("ct", "boot", "counts", "repeats"):
+        del wb[k]
+    clock.done(27)
     fork = matrix_phases(dev, smi, rng, int32_ops_per_s, clock)
     to_hold.update(fork.pop("to_hold"))
     clock.done(16)
@@ -4530,6 +4695,12 @@ def run(refs: CPUReferences) -> int:
                                                 + par["b4_rows"]
                                                 if r[0] == d]))
         REPLACES[f"ntt64_{d}"] = B4_REPLACES[d]
+    for d in ("fwd", "bwd"):  # phase 27: a staged bootstrap's kernel nodes in its graphs
+        by_path[d]["staged fast bootstrap (phase 27, kernel nodes a bootstrap)"] = \
+            staged27["fast"]["nodes"]["B1"][d]
+        for path in ("fast", "wide"):
+            by_path[f"ntt64_{d}"][f"staged {path} bootstrap (phase 27, kernel nodes a "
+                                  f"bootstrap)"] = staged27[path]["nodes"]["B4"][d]
     for d in ("fwd", "bwd"):
         by_path[f"ntt3n_{d}"] = {k: v[d] for k, v in fork["b5_by_path"].items()}
         launches[f"ntt3n_{d}"] = fork["b5_launches"][d]
@@ -4563,7 +4734,7 @@ def run(refs: CPUReferences) -> int:
     assert par["b6"]["launches"] > 0 and par["b6"]["max_abs_err"] == 0, par["b6"]
     kernels.append(par["b6"])
     clock.done(26)
-    for n in range(1, 27):
+    for n in range(1, 28):
         print(f"phase time: {n} {clock.times.get(n, 0.0):.3f}")
     print(f"phase time: all {sum(clock.times.values()):.3f}")
     print(json.dumps({"kernels": kernels}))

@@ -27,6 +27,7 @@ from matrix_fhe_tpu_torch.fast import fckks, flintrans, frns
 from matrix_fhe_tpu_torch.fast.fckks import FastCKKSContext
 from matrix_fhe_tpu_torch.rlwe.elements import Ciphertext, Plaintext
 from matrix_fhe_tpu_torch.schemes import ckks
+from matrix_fhe_tpu_torch.utils.device import constant
 
 
 def to_int32(v: torch.Tensor) -> torch.Tensor:
@@ -94,8 +95,7 @@ class FastEvaluator(ckks.Evaluator):
     def _double_rns_scalars(self, level: int, c: complex, scale) -> tuple:
         s0, s1 = self._double_rns_scalar_ints(level, c, scale)
         dev = self.params.device
-        return (torch.tensor(s0, dtype=torch.int32, device=dev)[:, None],
-                torch.tensor(s1, dtype=torch.int32, device=dev)[:, None])
+        return (constant(s0, torch.int32, dev)[:, None], constant(s1, torch.int32, dev)[:, None])
 
     # -- rescale -------------------------------------------------------------
     def rescale(self, a: Ciphertext) -> Ciphertext:

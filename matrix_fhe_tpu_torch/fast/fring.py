@@ -20,7 +20,7 @@ import dataclasses
 import torch
 
 from matrix_fhe_tpu_torch.ops import ntt_cuda
-from matrix_fhe_tpu_torch.utils.device import resolve_device
+from matrix_fhe_tpu_torch.utils.device import constant, resolve_device
 
 MAX_FAST_MODULUS = ntt_cuda.MAX_V2_MODULUS  # 2^23
 
@@ -148,9 +148,11 @@ class FastRing:
         return self.sub(p1, self._scalar_limbs(scalar)[:, None].expand_as(p1))
 
     def _scalar_limbs(self, scalar) -> torch.Tensor:
+        if isinstance(scalar, torch.Tensor):
+            return scalar.to(device=self.device, dtype=torch.int32)
         if isinstance(scalar, int):
             scalar = [scalar % q for q in self.moduli_tuple]
-        return torch.as_tensor(scalar, dtype=torch.int32, device=self.device)
+        return constant(scalar, torch.int32, self.device)
 
     # -- NTT -----------------------------------------------------------------
     def ntt(self, p: torch.Tensor) -> torch.Tensor:

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from matrix_fhe_tpu_torch.fast.fring import FastRing, mulmod
-from matrix_fhe_tpu_torch.utils.device import resolve_device
+from matrix_fhe_tpu_torch.utils.device import constant, resolve_device
 
 
 def _i32(values, device) -> torch.Tensor:
@@ -48,7 +48,7 @@ def div_round_by_last_modulus(ring: FastRing, p: torch.Tensor) -> torch.Tensor:
     sub = ring.at_level(lvl - 1)
     q = sub.moduli[:, None]
     t_red = _red_to(t, sub)
-    h_mod = _i32([h % m for m in ring.moduli_tuple[:lvl]], ring.device)[:, None]
+    h_mod = constant([h % m for m in ring.moduli_tuple[:lvl]], torch.int32, ring.device)[:, None]
     qlinv = [pow(ql, -1, m) for m in ring.moduli_tuple[:lvl]]
     acc = p[..., :lvl, :] + h_mod + (2 * q - t_red)  # [0, 4q)
     return sub.mul_scalar_montgomery(torch.remainder(acc, q), qlinv)

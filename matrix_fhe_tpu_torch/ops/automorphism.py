@@ -58,15 +58,12 @@ def ntt_index(ring_type: str, n: int, nth_root: int, gal_el: int) -> np.ndarray:
     return automorphism_ntt_index(n, nth_root, gal_el)
 
 
-def _gather(p: torch.Tensor, src: np.ndarray) -> torch.Tensor:
-    return p[..., torch.from_numpy(np.asarray(src, dtype=np.int64)).to(p.device)]
-
-
-def _negate_where(ring, g: torch.Tensor, flip: np.ndarray) -> torch.Tensor:
-    """g with the coefficients at ``flip`` negated mod q (fully reduced)."""
+def _negate_where(ring, g: torch.Tensor, flip: torch.Tensor) -> torch.Tensor:
+    """g with the coefficients where ``flip`` is true negated mod q (fully
+    reduced)."""
     q = ring.moduli[:, None]
     neg = torch.where(g == 0, g, q - g)
-    return torch.where(torch.from_numpy(flip == 1).to(g.device), neg, g)
+    return torch.where(flip, neg, g)
 
 
 @functools.lru_cache(maxsize=None)
@@ -107,26 +104,34 @@ def _ci_coeff_map(n: int, gal_el: int) -> tuple[np.ndarray, np.ndarray]:
     return src, flip
 
 
+@functools.lru_cache(maxsize=None)
+def _coeff_map(ring_type: str, n: int, gal_el: int, device: torch.device
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(src, flip) of the coefficient-domain automorphism: out[i] =
+    (-1)^flip[i] in[src[i]], as tensors on ``device``, moved there once."""
+    if ring_type == "conjugate_invariant":
+        src, flip = _ci_coeff_map(n, gal_el)
+    else:
+        i = np.arange(n, dtype=np.uint64)
+        raw = i * np.uint64(gal_el)
+        dst = (raw & np.uint64(n - 1)).astype(np.int64)
+        sign = ((raw >> np.uint64(n.bit_length() - 1)) & np.uint64(1)).astype(np.int64)
+        src = np.zeros(n, dtype=np.int64)
+        src[dst] = np.arange(n)  # gal_el odd: a bijection
+        flip = np.zeros(n, dtype=np.int64)
+        flip[dst] = sign
+    return torch.from_numpy(src).to(device), torch.from_numpy(flip == 1).to(device)
+
+
 def automorphism_coeff(ring, p: torch.Tensor, gal_el: int) -> torch.Tensor:
     """Coefficient-domain automorphism (ring/automorphism.go:111-176), fully
     reduced (the reference may leave q for -0).  Standard ring:
     out[(i*k) mod N] = (-1)^floor(i*k/N) in[i]; CI ring: the same on the
     2N-degree cover, folded back."""
-    n = ring.n
-    if ring.ring_type == "conjugate_invariant":
-        src, flip = _ci_coeff_map(n, gal_el)
-        return _negate_where(ring, _gather(p, src), flip)
-    if ring.ring_type != "standard":
+    if ring.ring_type not in ("standard", "conjugate_invariant"):
         raise NotImplementedError("automorphism on 3N rings is not defined by the reference")
-    i = np.arange(n, dtype=np.uint64)
-    raw = i * np.uint64(gal_el)
-    dst = (raw & np.uint64(n - 1)).astype(np.int64)
-    sign = ((raw >> np.uint64(n.bit_length() - 1)) & np.uint64(1)).astype(np.int64)
-    src = np.zeros(n, dtype=np.int64)
-    src[dst] = np.arange(n)  # gal_el odd: a bijection
-    flip = np.zeros(n, dtype=np.int64)
-    flip[dst] = sign
-    return _negate_where(ring, _gather(p, src), flip)
+    src, flip = _coeff_map(ring.ring_type, ring.n, gal_el, p.device)
+    return _negate_where(ring, p[..., src], flip)
 
 
 def shift(p: torch.Tensor, k: int) -> torch.Tensor:
@@ -136,9 +141,10 @@ def shift(p: torch.Tensor, k: int) -> torch.Tensor:
 
 def mult_by_monomial(ring, p: torch.Tensor, k: int) -> torch.Tensor:
     """p * X^k in Z_q[X]/(X^N+1) (ring/operations.go:306): out[j] =
-    (-1)^w p[i] with i = (j - k) mod N, w = floor((i + m)/N) & 1, m = k mod 2N."""
+    (-1)^w p[i] with i = (j - k) mod N, w = floor((i + m)/N) & 1, m = k mod 2N
+    (the indices made on p's device, so nothing is copied from the host)."""
     n = ring.n
     m = k % (2 * n)
-    src = (np.arange(n, dtype=np.int64) - m) % n
-    flip = ((src + m) // n) & 1
-    return _negate_where(ring, _gather(p, src), flip)
+    src = torch.remainder(torch.arange(n, device=p.device) - m, n)
+    flip = torch.bitwise_and(torch.div(src + m, n, rounding_mode="floor"), 1) == 1
+    return _negate_where(ring, p[..., src], flip)

@@ -41,6 +41,8 @@ from __future__ import annotations
 
 import torch
 
+from matrix_fhe_tpu_torch.utils.device import constant
+
 MASK64 = (1 << 64) - 1
 M32 = 0xFFFFFFFF
 INT64_MIN = -(1 << 63)
@@ -206,8 +208,8 @@ def modsum(x: torch.Tensor, q, bhi, dim: int = -1, fold: int = 4) -> torch.Tenso
     Barrett reduction, to [0, 2q), between rounds.  ``q``/``bhi`` broadcast
     against ``x`` with ``dim`` removed."""
     x = torch.movedim(x, dim, -1)
-    q = torch.as_tensor(q, device=x.device)
-    bhi = torch.as_tensor(bhi, device=x.device)
+    q, bhi = (v.to(x.device) if isinstance(v, torch.Tensor) else constant(v, torch.int64, x.device)
+              for v in (q, bhi))
     qe, be = q[..., None], bhi[..., None]
     while x.shape[-1] > 1:
         n = x.shape[-1]

@@ -46,7 +46,7 @@ from matrix_fhe_tpu_torch.ops import ntt3n_cuda, ntt64_cuda
 from matrix_fhe_tpu_torch.ops import ntt_3n as n3
 from matrix_fhe_tpu_torch.ops.tables import bit_reverse
 from matrix_fhe_tpu_torch.utils import primes as pr
-from matrix_fhe_tpu_torch.utils.device import resolve_device
+from matrix_fhe_tpu_torch.utils.device import constant, resolve_device
 
 STANDARD = "standard"
 CONJUGATE_INVARIANT = "conjugate_invariant"
@@ -71,6 +71,16 @@ def _words(values: list[int], device) -> torch.Tensor:
     """int64 [L] tensor holding the 64-bit words ``values`` (Python ints)."""
     return torch.tensor([mm.signed(v) for v in values], dtype=torch.int64,
                         device=device)
+
+
+def _limbs(values, device) -> torch.Tensor:
+    """Per-limb scalars (a tensor, or integers < 2^63) as an int64 tensor on
+    ``device``; integers are made there once (``constant``)."""
+    if isinstance(values, torch.Tensor):
+        return values.to(device=device, dtype=torch.int64)
+    if isinstance(values, np.ndarray):
+        values = values.astype(np.int64)  # residues < 2^61
+    return constant(values, torch.int64, device)
 
 
 def _constants(q: int, limit: int = mm.MAX_MODULUS) -> dict:
@@ -307,7 +317,7 @@ class Ring:
 
     def mul_scalar_montgomery(self, p1, scalar_mont):
         """scalar_mont: [L] per-limb Montgomery-form scalars."""
-        s = torch.as_tensor(scalar_mont, dtype=torch.int64, device=self.device)
+        s = _limbs(scalar_mont, self.device)
         return mm.mred(p1, self._c(s), self._c(self.moduli), self._c(self.qinv))
 
     def add_scalar(self, p1, scalar):
@@ -321,9 +331,7 @@ class Ring:
     def _scalar_limbs(self, scalar) -> torch.Tensor:
         if isinstance(scalar, int):
             scalar = [scalar % q for q in self.moduli_tuple]
-        elif isinstance(scalar, np.ndarray):
-            scalar = scalar.astype(np.int64)  # residues < 2^61
-        return torch.as_tensor(scalar, dtype=torch.int64, device=self.device)
+        return _limbs(scalar, self.device)
 
     # -- NTT: B4 / B5 on a CUDA tensor, the torch ops below on the CPU --------
     def ntt(self, p: torch.Tensor) -> torch.Tensor:

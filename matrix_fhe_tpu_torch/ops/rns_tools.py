@@ -37,7 +37,7 @@ import torch
 
 from matrix_fhe_tpu_torch.ops import modmath as mm
 from matrix_fhe_tpu_torch.ops.rings import Ring
-from matrix_fhe_tpu_torch.utils.device import resolve_device
+from matrix_fhe_tpu_torch.utils.device import constant, resolve_device
 
 
 def _t(values, device) -> torch.Tensor:
@@ -64,7 +64,8 @@ def div_floor_by_last_modulus(ring: Ring, p: torch.Tensor) -> torch.Tensor:
 
 
 def _half_mod(ring: Ring, lvl: int, p_half: int) -> torch.Tensor:
-    return _t([p_half % m for m in ring.moduli_tuple[:lvl]], ring.device)[:, None]
+    return constant([p_half % m for m in ring.moduli_tuple[:lvl]], torch.int64,
+                    ring.device)[:, None]
 
 
 def div_round_by_last_modulus(ring: Ring, p: torch.Tensor) -> torch.Tensor:

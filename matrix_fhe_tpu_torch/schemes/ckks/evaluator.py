@@ -25,6 +25,7 @@ from matrix_fhe_tpu_torch.rlwe.elements import Ciphertext, Plaintext
 from matrix_fhe_tpu_torch.rlwe.keys import GaloisKey, RelinearizationKey
 from matrix_fhe_tpu_torch.schemes.ckks.params import CKKSParameters
 from matrix_fhe_tpu_torch.utils import primes as pr
+from matrix_fhe_tpu_torch.utils.device import constant
 
 
 class Evaluator:
@@ -244,8 +245,7 @@ class Evaluator:
     def _double_rns_scalars(self, level: int, c: complex, scale) -> tuple:
         s0, s1 = self._double_rns_scalar_ints(level, c, scale)
         dev = self.params.device
-        return (torch.tensor(s0, dtype=torch.int64, device=dev)[:, None],
-                torch.tensor(s1, dtype=torch.int64, device=dev)[:, None])
+        return (constant(s0, torch.int64, dev)[:, None], constant(s1, torch.int64, dev)[:, None])
 
     def _apply_double_rns(self, ct: Ciphertext, s0, s1, op: str,
                           mul_scale=None) -> Ciphertext:

@@ -1,15 +1,17 @@
 """What a call does on the card, counted without a profiler.
 
 * ``graph_kernels(fn, calls)``: the calls captured into a CUDA graph (no
-  work runs), whose nodes are read back through the driver: the name of
-  each kernel node, or the type of any other node.  A profiler may drop
-  device events; a captured graph holds every launch the calls made.
+  work runs), whose nodes are read back through the driver
+  (``graph_nodes``): the name of each kernel node, or the type of any
+  other node.  A profiler may drop device events; a captured graph holds
+  every launch the calls made.
 * ``torch_ops(fn)``: the torch operators one call dispatches (a dispatch
   mode records each; a launch through ctypes is none).
 
 ``chip_smoke.py`` (phase 16) and ``tests/test_torch_ntt3n_cuda.py`` check
 with them that a CI transform is one kernel and no torch operator on its
-words.
+words; phase 27 counts the kernels in the staged bootstrap's graphs
+(``circuits/ckks/staged.py``) with ``graph_nodes``.
 """
 
 from __future__ import annotations
@@ -49,16 +51,24 @@ def _check(err: int, what: str) -> None:
 
 
 def graph_kernels(fn, calls: int = 3) -> list[str]:
-    """One entry for each node of a CUDA graph into which ``calls`` calls
-    of fn() are captured, in the driver's order: a kernel node's function
-    name (as compiled), any other node as ``"node type <t>"``.  fn() runs
-    once first, outside the capture (it may build or load a kernel)."""
+    """``graph_nodes`` of a CUDA graph into which ``calls`` calls of fn()
+    are captured.  fn() runs once first, outside the capture (it may build
+    or load a kernel)."""
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(graph):
         for _ in range(calls):
             fn()
+    out = graph_nodes(graph)
+    graph.reset()
+    return out
+
+
+def graph_nodes(graph: torch.cuda.CUDAGraph) -> list[str]:
+    """One entry for each node of a captured graph (made with
+    ``keep_graph=True``), in the driver's order: a kernel node's function
+    name (as compiled), any other node as ``"node type <t>"``."""
     lib, raw = _driver(), ctypes.c_void_p(graph.raw_cuda_graph())
     count = ctypes.c_size_t(0)
     _check(lib.cuGraphGetNodes(raw, None, ctypes.byref(count)), "cuGraphGetNodes")
@@ -79,7 +89,6 @@ def graph_kernels(fn, calls: int = 3) -> list[str]:
         else:
             _check(lib.cuKernelGetName(ctypes.byref(name), params.kern), "cuKernelGetName")
         out.append(name.value.decode())
-    graph.reset()
     return out
 
 

@@ -10,6 +10,10 @@ on the JAX package's keys and ciphertexts at logN 6.
   (``evaluate(iterations=2)``): the port's outputs hash to the JAX package's
   fast pipeline's (``DIGESTS``, tools/port_circuit_digests.py); the
   encapsulation keys made from JAX's draws equal JAX's.
+* The staged bootstrap (circuits/ckks/staged.py; on the CPU every stage
+  runs eagerly): its output hashes to ``U64_BOOT_DIGEST``, as
+  tests/test_fboot.py's staged case, and its stages' names and outputs
+  (``run_stages``) hash to the JAX package's ``StagedBootstrapper``'s.
 * The presets and the chain check equal the JAX package's.
 
 No precision is asserted, as in tests/test_fboot.py: this chain decodes to
@@ -17,7 +21,9 @@ noise (ROADMAP C).
 """
 
 import dataclasses
+import gzip
 import hashlib
+import pathlib
 from types import SimpleNamespace
 
 import jax
@@ -54,6 +60,19 @@ def jax_context():
     return SimpleNamespace(dense=_jax_session(0, 0, True), sparse=_jax_session(8, 2, False))
 
 
+# the dense session for the card's test, where JAX is absent
+# (tests/test_torch_staged_cuda.py; written by tools/port_staged_fixture.py)
+FIXTURE = pathlib.Path(__file__).parent / "data" / "fboot_logn6_jax.mft.gz"
+
+
+def jax_blobs(s) -> bytes:
+    """A JAX session's relinearization key, ciphertext and galois keys (by
+    element), one after the other in the JAX package's wire format."""
+    from matrix_fhe_tpu.utils import serialization as js
+    return b"".join([js.save(s.evk.rlk), js.save(s.ct)]
+                    + [js.save(s.evk.gks[g]) for g in sorted(s.evk.gks)])
+
+
 def _bts(m, s):
     """The session's fast bootstrapper, made on first use."""
     if not hasattr(s, "bts"):
@@ -61,17 +80,29 @@ def _bts(m, s):
     return s.bts
 
 
+def _stages(m, s):
+    """The staged bootstrap's stages: each one's name (as bytes) and output,
+    in order; run on first use."""
+    if not hasattr(s, "stages"):
+        st = m.staged.StagedBootstrapper(_bts(m, s))
+        s.stages = [(np.frombuffer(name.encode(), np.uint8), ct)
+                    for name, ct in st.run_stages(m.feval.ct_to_fast(s.ct))]
+    return s.stages
+
+
 CASES = {
     "bootstrap_sparse": lambda m, c: _bts(m, c.sparse).bootstrap(
         m.feval.ct_to_fast(c.sparse.ct)),
     "evaluate_iterations_2": lambda m, c: _bts(m, c.dense).evaluate(
         m.feval.ct_to_fast(c.dense.ct), iterations=2),
+    "staged_stages": lambda m, c: _stages(m, c.dense),
 }
 
 # tools/port_circuit_digests.py: the JAX package's outputs of CASES
 DIGESTS = {
     "bootstrap_sparse": "261e8485c1d9a4391f2eee31aa35ddae3dfc1837519c73563fe47d6c9355fe2e",
     "evaluate_iterations_2": "4f6d572347dcf3f92488e9c855484f3779d03ee4cf23dc03293d6eb5164ef297",
+    "staged_stages": "f747427f6bd85876387030109d6d91b9b441ccdf2726b6aa7acf7f5f93363dc5",
 }
 
 
@@ -111,6 +142,44 @@ def test_u64_bootstrap_matches_u64_digest(ctx):
     """The port's u64 pipeline on the fast chain: the same limbs."""
     s = ctx.dense
     assert _u64_digest(PORT.btp.Evaluator(s.p, s.evk).bootstrap(s.ct)) == U64_BOOT_DIGEST
+
+
+def test_fast_bootstrap_staged_digest(ctx):
+    """tests/test_fboot.py:65: the staged bootstrap gives the eager one's
+    limbs (its last stage's output; ``__call__`` returns it, as
+    tests/test_torch_wboot.py's staged case checks)."""
+    s = ctx.dense
+    out = _stages(PORT, s)[-1][1]
+    assert out.level == s.p.residual_level and out.scale == s.p.params.default_scale
+    assert _u64_digest(out) == U64_BOOT_DIGEST
+
+
+def test_staged_stages(ctx):
+    """Stage by stage, the names and outputs of the JAX package's
+    StagedBootstrapper."""
+    out = check_case(CASES, DIGESTS, "staged_stages", ctx)
+    assert [bytes(name).decode() for name, _ in out] == [
+        "head", "c2s[0]", "c2s[1]", "c2s[2]", "c2s_tail", "evalmod2", "s2c[0]", "s2c[1]",
+        "s2c[2]"]
+
+
+def test_staged_refuses_divergent_stages(ctx):
+    """The stages follow the DFT's level groups, and refuse a format whose
+    CoeffsToSlots has no conjugate split."""
+    bts = _bts(PORT, ctx.dense)
+    lit = bts.c2s_matrix.literal
+    grouped = SimpleNamespace(literal=dataclasses.replace(lit, levels=[2, 1]),
+                              matrices=bts.c2s_matrix.matrices)
+    assert [len(g) for g in PORT.staged._level_groups(grouped)] == [2, 1]
+    standard = SimpleNamespace(**vars(bts))
+    standard.c2s_matrix = SimpleNamespace(literal=dataclasses.replace(lit, format="standard"),
+                                          matrices=bts.c2s_matrix.matrices)
+    with pytest.raises(ValueError, match="format"):
+        PORT.staged.StagedBootstrapper(standard)
+
+
+def test_card_fixture_is_the_jax_session(jctx):
+    assert gzip.decompress(FIXTURE.read_bytes()) == jax_blobs(jctx.dense)
 
 
 def test_fast_bootstrap_sparse_encapsulation(ctx):

@@ -45,7 +45,7 @@ _NAMES = {"poly": "circuits.polynomial", "bn": "utils.bignum", "ckks": "schemes.
           "noise": "rlwe.noise", "bgv": "schemes.bgv", "bgv_circuits": "circuits.bgv_circuits",
           "rgsw": "rgsw.rgsw", "blindrot": "rgsw.blindrot", "mp": "multiparty.protocols",
           "threshold": "multiparty.threshold", "mpckks": "multiparty.mpckks",
-          "mpbgv": "multiparty.mpbgv"}
+          "mpbgv": "multiparty.mpbgv", "staged": "circuits.ckks.staged"}
 
 
 def modules(root: str) -> SimpleNamespace:

@@ -10,6 +10,8 @@ tests/test_wboot.py's three cases:
   tools/port_circuit_digests.py), and the port's u64 bootstrap on the same
   keys hashes to the same digest (tests/test_wboot.py holds the JAX wide
   pipeline to its u64 one limb for limb).
+* The staged bootstrap (circuits/ckks/staged.py, eager on the CPU) at the
+  same inputs hashes to the same digest (tests/test_wboot_staged.py's case).
 * Precision at logN 12 (the JAX package's 15-bit mean criterion) and the
   wide61 preset bit-exact against the u64 pipeline: slow-marked, as the JAX
   package marks the same cases (tests/test_wboot.py:49,78); they run on the
@@ -69,6 +71,8 @@ def _wide_bts(m, c):
 CASES = {
     "wide_bootstrap": lambda m, c: m.weval.ct_to_u64(_wide_bts(m, c).bootstrap(
         m.weval.ct_to_wide(c.ct, c.p.params)), c.p.params),
+    "wide_bootstrap_staged": lambda m, c: m.weval.ct_to_u64(m.staged.StagedBootstrapper(
+        _wide_bts(m, c))(m.weval.ct_to_wide(c.ct, c.p.params)), c.p.params),
 }
 
 # tools/port_circuit_digests.py: the JAX package's outputs of CASES
@@ -94,6 +98,19 @@ def test_wide_bootstrap_bit_exact(ctx):
     u64 = PORT.btp.Evaluator(ctx.p, ctx.evk).bootstrap(ctx.ct)
     assert out.scale == u64.scale
     assert digest(u64) == DIGESTS["wide_bootstrap"]
+
+
+def test_wide_bootstrap_staged_digest(ctx):
+    """tests/test_wboot_staged.py:31: the staged wide bootstrap equals the
+    eager one's digest, at the default scale; ``on_stage`` sees each stage."""
+    st = PORT.staged.StagedBootstrapper(_wide_bts(PORT, ctx))
+    names = []
+    st.on_stage = names.append
+    out = PORT.weval.ct_to_u64(st(PORT.weval.ct_to_wide(ctx.ct, ctx.p.params)), ctx.p.params)
+    assert out.level == ctx.p.residual_level and out.scale == ctx.p.params.default_scale
+    assert digest(out) == DIGESTS["wide_bootstrap"]
+    assert names == ["head", "c2s[0]", "c2s[1]", "c2s[2]", "c2s_tail", "evalmod2", "s2c[0]",
+                     "s2c[1]", "s2c[2]"]
 
 
 def _own_session(lit, seed):

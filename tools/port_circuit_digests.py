@@ -2,6 +2,7 @@
 circuit tests.
 
     python tools/port_circuit_digests.py [test_torch_polynomial ...]
+    python tools/port_circuit_digests.py test_torch_fboot:staged_stages ...
 
 Each named test module (default: all of ``MODULES``) defines
 ``jax_context()`` (the JAX package's parameters, keys and ciphertexts from
@@ -9,7 +10,8 @@ its seeds), ``CASES`` (one function a circuit over a namespace of modules,
 run here on the JAX package's) and ``DIGESTS``; this runs every case on the
 JAX package on the CPU and prints the ``DIGESTS`` dict to paste in, the
 sha256 that ``digest`` (tests/test_torch_polynomial.py) gives of its
-output.  The circuits run eagerly, as the JAX package's own tests run them:
+output.  ``module:case`` runs that case alone (the module's context is
+still made whole).  The circuits run eagerly, as the JAX package's own tests run them:
 minutes a module.
 
 The modules of ring switching, the bridge, ring packing, the packed
@@ -63,13 +65,16 @@ def main() -> None:
     import matrix_fhe_tpu  # noqa: F401  (x64 on)
     from test_torch_polynomial import JAX, digest
 
-    for name in sys.argv[1:] or MODULES:
+    for arg in sys.argv[1:] or MODULES:
+        name, _, only = arg.partition(":")
         t0 = time.perf_counter()
         mod = importlib.import_module(name)
         ctx = mod.jax_context()
         print(f"# {name}: context {time.perf_counter() - t0:.1f} s", flush=True)
         lines = []
         for case, fn in mod.CASES.items():
+            if only and case != only:
+                continue
             t1 = time.perf_counter()
             lines.append(f'    "{case}": "{digest(fn(JAX, ctx))}",')
             print(f"# {case}: {time.perf_counter() - t1:.1f} s", flush=True)
