@@ -349,6 +349,35 @@ process (parallel/launch.py), on the one card:
     bootstraps (host clock around work ending in a synchronize) and their
     device time queued, beside phase 9's (12's) eager warm median; the
     graphs and replays a bootstrap, and the peak device memory.
+Then the reference's production bootstrap, the largest configuration a
+user of the library runs:
+
+28. the wide bootstrap at fboot.wide61_parameters_literal(16, 5, 32, 4):
+    logN 16, 2^15 slots, the reference's N16QP1547 widths (60-bit q0, 45-,
+    42-, 58- and 60-bit primes, 19 in Q, four 61-bit P primes), sparse
+    secret weight 32, 39 galois keys, none cut: keygen (draws on CPU
+    generators seeded as phase 12's, then the deterministic part),
+    make_wide_bootstrapper, two inputs of 2^15 complex slots from
+    default_rng(0) encrypted at the residual level; bootstrap cold, warm and
+    the median of 3 more; the stage table as phase 12's; the staged
+    bootstrap on the same bootstrapper as phase 27 runs it (first call split
+    into warm-up, capture and replays, the median of 5 and its device time
+    queued, graphs, replays and B4's kernel nodes); one u64 bootstrap
+    (btp.Evaluator) on the same keys and first input; the peak device
+    memory of the session and the graphs' pool.  Gates: (a) the wide
+    bootstrap equals the u64 one limb for limb; (b) the staged bootstrap
+    equals the eager one bit for bit on both inputs; (c) the decoded
+    precision of both, eager and staged, meets the JAX package's criterion
+    (mean >= 15 bits, min >= 5); (d) B4 equals its plain version at every
+    (direction, shape, moduli) the phase gave it, all at 2^16; (e) the
+    CoeffsToSlots and SlotsToCoeffs matrices hash to the JAX package's
+    (tests/test_torch_wboot.py's n16_dft_matrices, pinned by
+    tools/port_circuit_digests.py); (f) no wrapper launch in a replayed
+    bootstrap.  No CPU reference: the plain path cannot bootstrap at 2^16
+    within the script's limit.  B4 is the only kernel on this path (B1 runs
+    only on the fast path; B2, B3, B5 and B6 are off it).  Its loss table
+    joins the others and b4_shapes.json.
+
 Before the kernels line, one "phase time: <n> <seconds>" line a phase (a
 phase's continuation, the B4 checks after its group, counts to it; the
 builds to phase 2).
@@ -359,7 +388,7 @@ w22; counts zeroed just before each run and read just after; ntt_fwd/ntt_bwd
 also give launches_by_path: phase 4's, phase 8's cold pass, and phase 9's
 bootstrap and evaluate apart; ntt64_fwd/ntt64_bwd, kernel B4, phase 11's
 three PN14QP438 requests, with launches_by_path over phases 8, 9, 11, 12,
-13 and 17-25 and phase 27's kernel nodes; ntt3n_fwd/ntt3n_bwd, kernel B5,
+13, 17-25 and 28 (eager) and phases 27 and 28's kernel nodes; ntt3n_fwd/ntt3n_bwd, kernel B5,
 phase 15's operations, with launches_by_path over its keygen and each
 operation; ntt64_ci_fwd / ntt64_ci_bwd, B4 on the CI ring, phase 16's
 session, by stage, phase 18's CI side and phase 25's scheme switching;
@@ -519,6 +548,13 @@ WIDE_STEP_SHA256 = {
 # Phase 12: the JAX package's criterion for the wide bootstrap
 # (tests/test_wboot.py:50-76): decoded mean precision >= 15 bits, min >= 5
 WIDE_BOOT_FLOOR = {"mean": 15.0, "min": 5.0}
+# phase 28: wide61_parameters_literal(log_n, residual_levels, sparse_weight, num_p),
+# the reference's N16QP1547 widths at logN 16 (tests/test_torch_wboot.py:N16)
+N16_LITERAL = (16, 5, 32, 4)
+# tools/port_circuit_digests.py test_torch_wboot:n16_dft_matrices: the JAX
+# package's CoeffsToSlots and SlotsToCoeffs matrices there (dft_matrices_digest)
+N16_MATRICES_SHA256 = "56e7bf3d243c16c731588da20bfe48b906b0ae29b8f9b5dfe1cf5cba1c251681"
+N16_REPEATS = 3
 # Phase 13: tests/test_comparison_inverse.py's bounds (max |error|; atol for
 # Goldschmidt; atol + rtol |1/x| with 0.01 each for the inverse)
 CIRCUIT_BOUNDS = {"sign": 0.1, "step": 0.1, "max": 0.05, "min": 0.05,
@@ -873,6 +909,14 @@ def _to_cpu(gk):
         g, q=g.q.cpu(), p=None if g.p is None else g.p.cpu()))
 
 
+def int32_rate(sms: int) -> tuple:
+    """The card's maximum SM clock (MHz, nvidia-smi) and its int32 rate, op/s."""
+    max_sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
+    return max_sm_mhz, INT32_OPS_PER_CLOCK_PER_SM * sms * max_sm_mhz * 1e6
+
+
 def card_label() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -1197,16 +1241,26 @@ def graph_counts(st) -> dict:
     return out
 
 
-def staged_phase(path: str, s: dict, rows, sk, site: int, dev, smi: str) -> dict:
+def _pool_bytes(pool) -> int:
+    """The bytes the caching allocator holds in the graphs' memory pool
+    ``pool`` (its segments)."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
+
+
+def staged_phase(path: str, s: dict, rows, sk, site: int, dev, smi: str, ct2=None,
+                 stagewise: bool = True) -> dict:
     """Phase 27 on one path: ``s`` holds phase 9's (or 12's) bootstrapper
     ``bts``, its input ``ct``, its eager output ``boot``, the eager
     bootstrap's launches ``counts`` and its warm ``repeats``; ``rows`` are
     boot_stages' of ``ct``.  The staged bootstrapper's first call (eager
-    warm-up, capture, replay, timed apart), the two inputs held to the eager
-    bootstrap bit for bit, each stage held to the eager stage, the graphs'
-    kernel nodes held to the eager launches, the replays' times and the
-    peak memory.  On the CPU (a dry run: stub the torch.cuda memory calls,
-    _device_ms and graph_counts) the stages run eagerly."""
+    warm-up, capture, replay, timed apart), the two inputs (the second
+    ``ct2``, or one ``staged_input`` makes) held to the eager bootstrap bit
+    for bit, each stage held to the eager stage (``stagewise``), the graphs'
+    kernel nodes held to the eager launches, the replays' times, the peak
+    memory and the graphs' pool.  Returns the staged outputs of both inputs
+    with the numbers.  On the CPU (a dry run: stub the torch.cuda memory
+    calls, _device_ms, graph_counts and _pool_bytes) the stages run eagerly."""
     from matrix_fhe_tpu_torch.circuits.ckks import staged
     bts, ct = s["bts"], s["ct"]
     torch.cuda.synchronize()
@@ -1217,6 +1271,7 @@ def staged_phase(path: str, s: dict, rows, sk, site: int, dev, smi: str) -> dict
     (first, b1_first), b4_first = _b4_counted(dev, lambda: _counted(dev, lambda: st(ct)))
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
+    pool = _pool_bytes(st.graphs[0].pool) if dev.type == "cuda" else 0
     seconds = [e.seconds for g in {id(g): g for g in st.graphs}.values()
                for e in g.entries.values()]
     warm_s = sum(x["warm-up"] for x in seconds)
@@ -1224,7 +1279,8 @@ def staged_phase(path: str, s: dict, rows, sk, site: int, dev, smi: str) -> dict
     assert _same(first, s["boot"]), f"{path}: staged bootstrap != bootstrap"
 
     # a second input through the same graphs, against the eager bootstrap
-    ct2 = staged_input(bts, sk, site)
+    if ct2 is None:
+        ct2 = staged_input(bts, sk, site)
     (eager2, b1_eager), b4_eager = _b4_counted(dev, lambda: _counted(
         dev, lambda: bts.bootstrap(ct2)))
     (out2, b1_replay), b4_replay = _b4_counted(dev, lambda: _counted(dev, lambda: st(ct2)))
@@ -1239,16 +1295,17 @@ def staged_phase(path: str, s: dict, rows, sk, site: int, dev, smi: str) -> dict
         assert b1_replay == b4_replay == {"fwd": 0, "bwd": 0}, (b1_replay, b4_replay)
 
     # stage by stage: against the eager stages, and ct's against boot_stages'
-    for c in (ct, ct2):
+    for c in (ct, ct2) if stagewise else ():
         got, want = list(st.run_stages(c)), list(st.run_stages(c, eager=True))
         assert [n for n, _ in got] == [n for n, _ in want]
         for (name, a), (_, b) in zip(got, want):
             assert _same(a, b), f"{path}: stage {name} != the eager stage"
-    by_stage = dict(st.run_stages(ct))
-    by_row = {r[0]: r[1] for r in rows}
-    for stage, row in (("head", "ModUp"), ("c2s_tail", "CoeffsToSlots"),
-                       (list(by_stage)[-1], "SlotsToCoeffs")):
-        assert _same(by_stage[stage], by_row[row]), f"{path}: stage {stage} != {row}"
+    if stagewise:
+        by_stage = dict(st.run_stages(ct))
+        by_row = {r[0]: r[1] for r in rows}
+        for stage, row in (("head", "ModUp"), ("c2s_tail", "CoeffsToSlots"),
+                           (list(by_stage)[-1], "SlotsToCoeffs")):
+            assert _same(by_stage[stage], by_row[row]), f"{path}: stage {stage} != {row}"
 
     nodes = graph_counts(st)
     for k in ("B1", "B4"):
@@ -1272,8 +1329,9 @@ def staged_phase(path: str, s: dict, rows, sk, site: int, dev, smi: str) -> dict
           f"{warm_s * 1e3:.3f} ms, capture + instantiate {capture_s * 1e3:.3f} ms, the "
           f"replays and copies {(first_s - warm_s - capture_s) * 1e3:.3f} ms; wrapper "
           f"launches in it B1 {b1_first}, B4 {b4_first} | {smi}")
-    print(f"phase staged: {path}: bootstrap of two inputs == bts.bootstrap bit for bit, "
-          f"every stage == the eager stage; B1 kernel nodes {nodes['B1']}, B4 kernel nodes "
+    print(f"phase staged: {path}: bootstrap of two inputs == bts.bootstrap bit for bit"
+          f"{', every stage == the eager stage' if stagewise else ''}; B1 kernel nodes "
+          f"{nodes['B1']}, B4 kernel nodes "
           f"{nodes['B4']} == the eager bootstrap's launches; {nodes['kernels']} kernel nodes "
           f"and {nodes['other']} other nodes a bootstrap; 0 wrapper launches in a replayed "
           f"bootstrap | {smi}")
@@ -1282,9 +1340,169 @@ def staged_phase(path: str, s: dict, rows, sk, site: int, dev, smi: str) -> dict
           f"(device time queued {device:.3f} ms a bootstrap); eager warm median "
           f"{eager_ms:.3f} ms ({len(s['repeats'])} repeats) | {smi}")
     print(f"phase staged: {path}: peak device memory {peak / 2**20:.1f} MiB above the "
-          f"{held / 2**20:.1f} MiB the earlier phases hold | {smi}")
+          f"{held / 2**20:.1f} MiB the earlier phases hold; the graphs' pool "
+          f"{pool / 2**20:.1f} MiB | {smi}")
     del st
-    return {"nodes": nodes, "median_ms": statistics.median(reps), "eager_ms": eager_ms}
+    return {"nodes": nodes, "median_ms": statistics.median(reps), "eager_ms": eager_ms,
+            "device_ms": device, "reps": reps, "first_s": first_s, "warm_s": warm_s,
+            "capture_s": capture_s, "peak": peak, "pool": pool, "outs": (first, out2),
+            "eager2": eager2}
+
+
+# -- phase 28: the reference's production bootstrap at logN 16 ---------------------------
+
+def dft_matrices_digest(*matrices) -> str:
+    """sha256 of DFT matrices (``dft.Matrix`` of either package, in order):
+    each factor's scale, levels and baby-step count, then each diagonal's
+    index and its Q and P words as little-endian 64-bit words."""
+    h = hashlib.sha256()
+    for m in matrices:
+        for lt in m.matrices:
+            h.update(f"{lt.scale} {lt.level_q} {lt.level_p} {lt.n1}".encode())
+            for k in sorted(lt.vec):
+                h.update(str(k).encode())
+                for w in lt.vec[k]:
+                    if w is not None:
+                        a = w.cpu().numpy() if isinstance(w, torch.Tensor) else np.asarray(w)
+                        h.update(a.astype("<i8").tobytes())
+    return h.hexdigest()
+
+
+def n16_inputs(slots: int) -> list:
+    """Phase 28's two inputs: complex slots from default_rng(SEED)."""
+    rng = np.random.default_rng(SEED)
+    return [rng.uniform(-1, 1, slots) + 1j * rng.uniform(-1, 1, slots) for _ in range(2)]
+
+
+def n16_phase(dev, smi: str, rng, int32_ops_per_s: float, clock: PhaseClock) -> dict:
+    """Phase 28 (see the module's docstring): the wide bootstrap at
+    ``wide61_parameters_literal(*N16_LITERAL)``, eager and staged, held to
+    the u64 bootstrap, to itself staged, to the JAX package's criterion and
+    matrices; B4 at every shape it gave it.  No CPU reference: the plain
+    path cannot bootstrap at 2^16 within the script's limit.  Returns B4's
+    launches by path and its loss rows."""
+    from matrix_fhe_tpu_torch.circuits.ckks import bootstrapping as btp
+    from matrix_fhe_tpu_torch.fast import fboot
+    from matrix_fhe_tpu_torch.rlwe import encryptor
+    from matrix_fhe_tpu_torch.schemes import ckks
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    times: dict = {}
+    seen: dict = {}       # B4's calls by (direction, shape, moduli), the eager parts
+    launches: dict = {}   # and its launches there
+    p = _timed(times, "btp.Parameters", dev, lambda: btp.Parameters(
+        fboot.wide61_parameters_literal(*N16_LITERAL), device=dev))
+    params = p.params
+    print(f"phase n16: wide61_parameters_literal{N16_LITERAL}: logN {params.log_n}, "
+          f"{len(params.q)} + {len(params.p)} primes, Q "
+          f"{[q.bit_length() for q in params.q]} bits, P {[q.bit_length() for q in params.p]} "
+          f"bits, {params.max_slots} slots, residual level {p.residual_level}, "
+          f"{len(p.galois_elements())} galois keys, sparse secret weight "
+          f"{p.lit.ephemeral_secret_weight}")
+    (sk, evk), b4_keys = _b4_counted(dev, lambda: b4_shapes(lambda: boot_keys(p, times), seen,
+                                                            launches))
+    bts, b4_setup = _b4_counted(dev, lambda: b4_shapes(lambda: _timed(
+        times, "make_wide_bootstrapper", dev, lambda: fboot.make_wide_bootstrapper(p, evk)),
+        seen, launches))
+    # (e) the DFT matrices are the JAX package's
+    mdigest = _timed(times, "digest of the DFT matrices", dev,
+                     lambda: dft_matrices_digest(bts.c2s_matrix, bts.s2c_matrix))
+    assert mdigest == N16_MATRICES_SHA256, "phase 28: the DFT matrices != the JAX package's"
+    diags = sum(len(lt.vec) for m in (bts.c2s_matrix, bts.s2c_matrix) for lt in m.matrices)
+    vs = n16_inputs(params.max_slots)
+    cts = [_timed(times, f"encode + encrypt ({i})", dev, lambda: encryptor.encrypt(
+        _gen(281 + i), params, sk, bts.enc.encode(v, level=p.residual_level)))
+        for i, v in enumerate(vs)]
+    setup_peak = torch.cuda.max_memory_allocated() - held
+
+    # eager: cold, warm and N16_REPEATS more
+    out, b4_boot = _b4_counted(dev, lambda: b4_shapes(lambda: _timed(
+        times, "bootstrap (cold)", dev, lambda: bts.bootstrap(cts[0])), seen, launches))
+    warm, b4_warm = _b4_counted(dev, lambda: _timed(times, "bootstrap (warm)", dev,
+                                                    lambda: bts.bootstrap(cts[0])))
+    assert _same(warm, out) and b4_warm == b4_boot, "phase 28: warm bootstrap != cold"
+    reps = []
+    for _ in range(N16_REPEATS):
+        _timed(times, "bootstrap again", dev, lambda: bts.bootstrap(cts[0]))
+        reps.append(times.pop("bootstrap again"))
+    assert out.level == p.residual_level and out.scale == params.default_scale
+    eager_peak = torch.cuda.max_memory_allocated() - held
+    dec = _timed(times, "decrypt + decode", dev, lambda: boot_decode(bts, sk, out))
+    rows, composed = boot_stages(bts, sk, cts[0], vs[0])
+    assert _same(composed, out), "phase 28: the stages composed != bootstrap"
+    for name, ms in times.items():
+        print(f"phase n16: {name:34s} {ms:10.3f} ms | {smi}")
+    print(f"phase n16: eager bootstrap, {N16_REPEATS} more: "
+          f"{', '.join(f'{t:.3f}' for t in reps)} ms, median {statistics.median(reps):.3f} ms; "
+          f"B4 launches a bootstrap {b4_boot}, keygen {b4_keys}, make_wide_bootstrapper "
+          f"{b4_setup} | {smi}")
+    print(f"phase n16: the {diags} diagonals of the CoeffsToSlots and SlotsToCoeffs matrices "
+          f"hash to the JAX package's ({mdigest[:16]}...)")
+    for stage, ct_s, own, total, note in rows:
+        print(f"phase n16: stage {stage:13s} level {ct_s.level:2d} scale 2^"
+              f"{np.log2(float(ct_s.scale)):6.2f} | own mean {own[0]:8.4f} min {own[1]:8.4f} "
+              f"bits | total mean {total[0]:8.4f} min {total[1]:8.4f} bits | {note}")
+    clock.done(28)
+
+    # staged, on the same bootstrapper: (b) == eager on both inputs, (f) no
+    # wrapper launch in a replay
+    st = staged_phase(f"n16 wide61_parameters_literal{N16_LITERAL}", {
+        "bts": bts, "ct": cts[0], "boot": out, "repeats": reps,
+        "counts": {"B4": b4_boot, "B1": {"fwd": 0, "bwd": 0}}}, None, sk, 0, dev, smi,
+        ct2=cts[1], stagewise=False)
+    clock.done(28)
+
+    # (c) the JAX package's criterion on the decoded eager and staged outputs
+    decoded = {"eager, input 0": dec, "eager, input 1": boot_decode(bts, sk, st["eager2"]),
+               **{f"staged, input {i}": boot_decode(bts, sk, o) for i, o in enumerate(st["outs"])}}
+    missed = []
+    for what, d in decoded.items():
+        ps = ckks.precision_stats(vs[int(what[-1])], d)
+        met = (ps.avg_precision >= WIDE_BOOT_FLOOR["mean"]
+               and ps.min_precision >= WIDE_BOOT_FLOOR["min"])
+        print(f"phase n16: decoded precision, {what}: mean {ps.avg_precision:.4f} bits, min "
+              f"{ps.min_precision:.4f} bits over {len(d)} slots (the JAX package's criterion: "
+              f"mean >= {WIDE_BOOT_FLOOR['mean']}, min >= {WIDE_BOOT_FLOOR['min']}: "
+              f"{'met' if met else 'MISSED'}) | {smi}")
+        if not met:
+            missed.append(what)
+    assert not missed, f"phase 28: decoded precision below the JAX package's criterion: {missed}"
+
+    # (a) the u64 bootstrap on the same keys and input, limb for limb
+    u64_times: dict = {}
+    u64 = _timed(u64_times, "btp.Evaluator (u64)", dev, lambda: btp.Evaluator(p, evk))
+    out_u64 = _timed(u64_times, "u64 bootstrap", dev, lambda: u64.bootstrap(cts[0]))
+    assert out_u64.scale == out.scale and out_u64.level == out.level
+    assert _same(tuple(out.value), tuple(out_u64.value)), "phase 28: wide bootstrap != u64"
+    print(f"phase n16: wide bootstrap == u64 bootstrap (btp.Evaluator) limb for limb on the "
+          f"same keys and input; u64: evaluator {u64_times['btp.Evaluator (u64)']:.3f} ms, "
+          f"bootstrap {u64_times['u64 bootstrap']:.3f} ms | {smi}")
+    del u64, out_u64
+    peak = torch.cuda.max_memory_allocated() - held
+    print(f"phase n16: peak device memory above the {held / 2**20:.1f} MiB the earlier phases "
+          f"hold: setup {setup_peak / 2**20:.1f} MiB, eager {eager_peak / 2**20:.1f} MiB, "
+          f"the whole phase {peak / 2**20:.1f} MiB; the graphs' pool {st['pool'] / 2**20:.1f} "
+          f"MiB | {smi}")
+    clock.done(28)
+
+    # (d) B4 at every shape the phase gave it, all at 2^16
+    shape_rows = check_b4_shapes(seen, dev, rng)
+    assert all(r[1][-1] == params.n for r in shape_rows)
+    for d, shape, c, err, _ in shape_rows:
+        assert err == 0, f"B4 {d} {shape}: kernel != plain ({err})"
+    print(f"phase b4: B4 at the {len(shape_rows)} shapes (direction, shape, moduli) of phase 28, "
+          f"all at 2^{params.log_n}: kernel == plain at every one; (rows, C): "
+          f"{sorted({(int(np.prod(r[1][:-1])), r[2]) for r in shape_rows})}")
+    loss = b4_loss(seen, launches, dev, rng, int32_ops_per_s, smi, "phase 28")
+    clock.done(28)
+    return {"shape_rows": shape_rows, "loss": loss,
+            "by_path": {
+                "wide61 N16 bootstrap setup (phase 28: keygen, make_wide_bootstrapper)":
+                    {d: b4_keys[d] + b4_setup[d] for d in ("fwd", "bwd")},
+                "wide61 N16 bootstrap (phase 28, eager)": b4_boot,
+                "staged wide61 N16 bootstrap (phase 28, kernel nodes a bootstrap)":
+                    st["nodes"]["B4"]}}
 
 
 
@@ -4170,7 +4388,7 @@ def main() -> int:
 
 
 def run(refs: CPUReferences) -> int:
-    """Phases 1-27 on the card; ``refs``: the CPU references."""
+    """Phases 1-28 on the card; ``refs``: the CPU references."""
     from matrix_fhe_tpu_torch.fast import fckks, fring
     from matrix_fhe_tpu_torch.ops import ntt_cuda, ntt_plain, ntt_w22
 
@@ -4341,10 +4559,7 @@ def run(refs: CPUReferences) -> int:
     print("phase check: digests equal the JAX package's; all requests equal "
           "the CPU plain path")
 
-    max_sm_mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
-    int32_ops_per_s = INT32_OPS_PER_CLOCK_PER_SM * sms * max_sm_mhz * 1e6
+    max_sm_mhz, int32_ops_per_s = int32_rate(sms)
     print(f"bound: {HBM_BYTES_PER_S / 1e12} TB/s, {sms} SMs x "
           f"{INT32_OPS_PER_CLOCK_PER_SM} int32 op/clock at {max_sm_mhz} MHz = "
           f"{int32_ops_per_s / 1e12:.3f} Tops/s")
@@ -4663,10 +4878,11 @@ def run(refs: CPUReferences) -> int:
     surface = surface_phases(dev, smi, rng, int32_ops_per_s, clock, refs)
     hold_to_cpu_references(to_hold, refs, clock)
     par = parallel_phase(dev, smi, rng, int32_ops_per_s, clock)
+    n16 = n16_phase(dev, smi, rng, int32_ops_per_s, clock)
     assert "jax" not in sys.modules
     loss = (b4["loss"] + fork["ci_loss"] + rings["loss"] + rings["ci_loss"] + rgsw_mp["loss"]
-            + surface["loss"] + surface["ci_loss"])
-    print(f"phase b4 loss: B4 over phases 8-13 and 16-25: {len(loss)} shapes, "
+            + surface["loss"] + surface["ci_loss"] + n16["loss"])
+    print(f"phase b4 loss: B4 over phases 8-13, 16-25 and 28: {len(loss)} shapes, "
           f"{sum(r['launches'] for r in loss)} launches, loss launches x (device - bound) "
           f"{sum(r['loss_ms'] for r in loss):.4f} ms summed | {smi}")
     ntt_cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -4687,12 +4903,13 @@ def run(refs: CPUReferences) -> int:
             **{k: v[d] for k, v in b4["by_path"].items()},
             **{k: v[d] for k, v in rings["by_path"].items()},
             **{k: v[d] for k, v in rgsw_mp["by_path"].items()},
-            **{k: v[d] for k, v in surface["by_path"].items()}}
+            **{k: v[d] for k, v in surface["by_path"].items()},
+            **{k: v[d] for k, v in n16["by_path"].items()}}
         launches[f"ntt64_{d}"] = 3 * b4["by_path"]["wide step PN14QP438 (phase 11, a request)"][d]
         stats[f"ntt64_{d}"] = dict(b4["stats"][d], max_abs_err=max(
             [r[-1] for r in b4["size_rows"]] + [r[3] for r in b4["shape_rows"] + rings["shape_rows"]
                                                 + rgsw_mp["shape_rows"] + surface["shape_rows"]
-                                                + par["b4_rows"]
+                                                + par["b4_rows"] + n16["shape_rows"]
                                                 if r[0] == d]))
         REPLACES[f"ntt64_{d}"] = B4_REPLACES[d]
     for d in ("fwd", "bwd"):  # phase 27: a staged bootstrap's kernel nodes in its graphs
@@ -4733,8 +4950,8 @@ def run(refs: CPUReferences) -> int:
         kernels.append(entry)
     assert par["b6"]["launches"] > 0 and par["b6"]["max_abs_err"] == 0, par["b6"]
     kernels.append(par["b6"])
-    clock.done(26)
-    for n in range(1, 28):
+    clock.done(28)
+    for n in range(1, 29):
         print(f"phase time: {n} {clock.times.get(n, 0.0):.3f}")
     print(f"phase time: all {sum(clock.times.values()):.3f}")
     print(json.dumps({"kernels": kernels}))

@@ -20,6 +20,7 @@ import numpy as np
 
 from matrix_fhe_tpu_torch.circuits import lintrans as lt
 from matrix_fhe_tpu_torch.rlwe.elements import Ciphertext
+from matrix_fhe_tpu_torch.utils.fp import cmul
 
 HOMOMORPHIC_ENCODE = "encode"   # CoeffsToSlots (IDFT)
 HOMOMORPHIC_DECODE = "decode"   # SlotsToCoeffs (DFT)
@@ -132,9 +133,9 @@ def _merge_next_level(diags: dict, log_l, n_mod, next_level, a, b, c,
     mask = len(a) - 1
     for i, v in diags.items():
         idx = np.arange(len(v))
-        _add_diag(out, i, a * v[(idx + 0) & mask])
-        _add_diag(out, (i + rot) & (n_mod - 1), b * v[(idx + rot) & mask])
-        _add_diag(out, (i - rot) & (n_mod - 1), c * v[(idx - rot) & mask])
+        _add_diag(out, i, cmul(a, v[(idx + 0) & mask]))
+        _add_diag(out, (i + rot) & (n_mod - 1), cmul(b, v[(idx + rot) & mask]))
+        _add_diag(out, (i - rot) & (n_mod - 1), cmul(c, v[(idx - rot) & mask]))
     return out
 
 

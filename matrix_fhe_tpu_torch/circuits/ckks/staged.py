@@ -26,6 +26,7 @@ import torch
 
 from matrix_fhe_tpu_torch.circuits.ckks import dft
 from matrix_fhe_tpu_torch.rlwe.elements import Ciphertext
+from matrix_fhe_tpu_torch.utils import device
 
 # The evaluator caches a stage fills on its first, eager run (fast/feval.py,
 # fast/weval.py); the u64 evaluator has none.
@@ -41,13 +42,17 @@ def _signature(cts) -> tuple:
 
 class _Entry:
     """One captured graph: its static input and output buffers, the output
-    metadata recorded at capture, and the first call's times."""
+    metadata recorded at capture, the device constants it reads, and the
+    first call's times."""
 
-    def __init__(self, graph, inputs, outputs, metas, seconds):
+    def __init__(self, graph, inputs, outputs, metas, constants, seconds):
         self.graph = graph
         self.inputs = inputs      # one tuple of limb tensors an input
         self.outputs = outputs    # one tuple of limb tensors an output (None: no output)
         self.metas = metas
+        # every utils/device.py constant read while capturing: the graph holds
+        # their addresses, not references, and the shared cache may drop them
+        self.constants = constants
         self.seconds = seconds    # {"warm-up": s, "capture": s}
 
 
@@ -55,8 +60,9 @@ class GraphedCiphertextFn:
     """A function of ciphertexts, captured into one CUDA graph for each input
     signature and replayed; see ``graph_ciphertext_fn``."""
 
-    def __init__(self, ev, params, fn, n_out: int, pool, name: str):
+    def __init__(self, ev, params, fn, n_out: int, pool, name: str, streams: dict):
         self.ev, self.fn, self.n_out, self.pool, self.name = ev, fn, n_out, pool, name
+        self.streams = streams
         self.on_cuda = params.device.type == "cuda"
         self.entries: dict[tuple, _Entry] = {}
 
@@ -86,28 +92,31 @@ class GraphedCiphertextFn:
 
     def _capture(self, cts) -> _Entry:
         """The first call of a signature: fn once eagerly on a side stream
-        (it fills the evaluator's caches and every device constant the stage
-        needs), then fn captured on static copies of the inputs."""
+        (it fills the evaluator's caches and makes every device constant the
+        stage needs, kept for the graph), then fn captured on static copies
+        of the inputs."""
         dev = cts[0].value[0].device
         inputs = tuple(tuple(v.clone(memory_format=torch.contiguous_format) for v in c.value)
                        for c in cts)
         static = [c.with_value(buf) for c, buf in zip(cts, inputs)]
         t0 = time.perf_counter()
-        side = torch.cuda.Stream(dev)
+        if dev not in self.streams:
+            self.streams[dev] = (torch.cuda.Stream(dev), torch.cuda.Stream(dev))
+        side, capture = self.streams[dev]
         side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
+        held: dict = {}
+        with torch.cuda.stream(side), device.holding(held):
             self._run(static)
         torch.cuda.current_stream(dev).wait_stream(side)
         torch.cuda.synchronize(dev)
         t1 = time.perf_counter()
         sizes = self._cache_sizes()
         graph = torch.cuda.CUDAGraph(keep_graph=True)
-        capture = torch.cuda.Stream(dev)
         try:
             # the outer context puts the current stream back even when a
             # failed capture leaves torch.cuda.graph's own unrestored
-            with torch.cuda.stream(capture), torch.cuda.graph(graph, pool=self.pool,
-                                                              stream=capture):
+            with device.holding(held), torch.cuda.stream(capture), \
+                    torch.cuda.graph(graph, pool=self.pool, stream=capture):
                 outs = self._run(static)
         except RuntimeError as e:
             raise RuntimeError(f"stage {self.name!r} could not be captured into a CUDA "
@@ -121,26 +130,33 @@ class GraphedCiphertextFn:
         torch.cuda.synchronize(dev)
         seconds = {"warm-up": t1 - t0, "capture": time.perf_counter() - t1}
         return _Entry(graph, inputs, tuple(None if o is None else o.value for o in outs),
-                      tuple(None if o is None else o.metadata for o in outs), seconds)
+                      tuple(None if o is None else o.metadata for o in outs), held, seconds)
 
 
-def graph_ciphertext_fn(ev, params, fn, n_out: int = 1, pool=None,
-                        name: str = "stage") -> GraphedCiphertextFn:
+def graph_ciphertext_fn(ev, params, fn, n_out: int = 1, pool=None, name: str = "stage",
+                        streams: dict | None = None) -> GraphedCiphertextFn:
     """``fn`` (Ciphertexts in, ``n_out`` Ciphertexts or None out) as one CUDA
     graph for each input signature (``_signature``), the counterpart of the
     JAX package's ``jit_ciphertext_fn``.
 
     When ``params`` live on a CUDA device, the first call of a signature runs
     fn once eagerly on a side stream, which fills ``ev``'s caches and the
-    device constants the stage needs, then captures fn on static copies of
-    the inputs and records the outputs' metadata; every call copies its
-    inputs into the static buffers, replays, and returns clones of the
-    static outputs, so a result is never overwritten by the next replay.
-    Graphs given the same ``pool`` (``torch.cuda.graph_pool_handle()``)
-    share their memory.  A stage that cannot be captured (a host
+    device constants the stage needs (the graph keeps a reference to each,
+    so the shared cache of ``utils/device.py`` may drop them), then captures
+    fn on static copies of the inputs and records the outputs' metadata;
+    every call copies its inputs into the static buffers, replays, and
+    returns clones of the static outputs, so a result is never overwritten
+    by the next replay.  Graphs given the same ``pool``
+    (``torch.cuda.graph_pool_handle()``) share their memory, and graphs
+    given the same ``streams`` dict warm up on one side stream and capture
+    on one stream a device: the caching allocator reuses a freed block only
+    on the stream that allocated it, so a capture reuses the blocks the
+    captures before it freed in the pool, and a warm-up those the warm-ups
+    before it freed.  A stage that cannot be captured (a host
     synchronisation, a copy from host memory) raises with its ``name``; it
     never runs eagerly instead.  On the CPU fn runs eagerly."""
-    return GraphedCiphertextFn(ev, params, fn, n_out, pool, name)
+    return GraphedCiphertextFn(ev, params, fn, n_out, pool, name,
+                               {} if streams is None else streams)
 
 
 def _level_groups(matrix: dft.Matrix) -> list[list]:
@@ -169,11 +185,14 @@ class StagedBootstrapper:
                              f"real and imaginary parts as the bootstrap's formats do")
         self._repack = (lit.format == dft.REPACK_IMAG_AS_REAL
                         and lit.log_slots < params.log_n - 1)
-        # one memory pool for every graph of this bootstrapper
+        # one memory pool and one pair of streams for every graph of this
+        # bootstrapper
         pool = torch.cuda.graph_pool_handle() if params.device.type == "cuda" else None
+        streams: dict = {}
 
         def graph(name, fn, n_out=1):
-            return graph_ciphertext_fn(ev, params, fn, n_out, pool=pool, name=name)
+            return graph_ciphertext_fn(ev, params, fn, n_out, pool=pool, name=name,
+                                       streams=streams)
 
         def head(ct):
             ct = bts.scale_down(ct)

@@ -153,8 +153,11 @@ def geometry(rows: int, n: int, sms: int) -> int:
     of ``rows`` rows on a card of ``sms`` SMs, the rule measured for this
     kernel by ``tools/ntt_cluster_sweep.py --b4`` on the H100 (132 SMs):
       * C = 1 below N = 2^13 (at 2^10, C = 1 is the fastest at 1-42 rows);
-      * from N = 2^15 on, C = 16 for a launch of at most sms / 32 rows (1-4
-        rows: 18-41% faster than C = 8), else C = 8 (9 and 42 rows: the
+      * from N = 2^15 on, C = 16 for a launch of at most sms / 18 rows (1-4
+        rows: 18-41% faster than C = 8; 5-7 rows: 14.6-17.1 us against
+        24.4-24.9 us at 2^16, 10.0-11.7 us against 11.8-13.6 us at 2^15),
+        else C = 8 (8 rows: 24.4-24.9 us against 26.8-30.9 us at C = 16 at
+        2^16, 11.8-13.5 us against 17.6-20.2 us at 2^15; 9 and 42 rows: the
         fastest; 126 rows at 2^15: the fastest inverse, 10% behind C = 4
         forward);
       * at N = 2^13 and 2^14, C = 8 up to 3 sms / 8 rows (1-42 rows: the
@@ -168,7 +171,7 @@ def geometry(rows: int, n: int, sms: int) -> int:
     if n < 1 << 13:
         return 1
     if n >= 1 << 15:
-        return 16 if rows * 32 <= sms else 8
+        return 16 if rows * 18 <= sms else 8
     if rows * 8 <= 3 * sms:
         return 8
     return 2 if n == 1 << 13 else 4

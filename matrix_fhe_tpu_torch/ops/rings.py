@@ -44,7 +44,7 @@ import torch
 from matrix_fhe_tpu_torch.ops import modmath as mm
 from matrix_fhe_tpu_torch.ops import ntt3n_cuda, ntt64_cuda
 from matrix_fhe_tpu_torch.ops import ntt_3n as n3
-from matrix_fhe_tpu_torch.ops.tables import bit_reverse
+from matrix_fhe_tpu_torch.ops.tables import bit_reverse_array
 from matrix_fhe_tpu_torch.utils import primes as pr
 from matrix_fhe_tpu_torch.utils.device import constant, resolve_device
 
@@ -108,8 +108,7 @@ def _gen_subring_tables(nth_root: int, q: int, limit: int = mm.MAX_MODULUS) -> d
     # roots_fwd[bitrev(j)] = psi^j * 2^64 mod q (ring/subring.go:198-211);
     # B4 takes psi^j and its Shoup quotient floor(psi^j * 2^64 / q)
     pw_f, pw_b = 1, 1
-    for j in range(half):
-        rj = bit_reverse(j, log_half)
+    for j, rj in enumerate(bit_reverse_array(np.arange(half), log_half).tolist()):
         out["psi_shoup"][rj], out["roots_fwd"][rj] = divmod(pw_f << 64, q)
         out["ipsi_shoup"][rj], out["roots_bwd"][rj] = divmod(pw_b << 64, q)
         out["psi"][rj], out["ipsi"][rj] = pw_f, pw_b
@@ -388,8 +387,8 @@ def new_ring(n: int, moduli: list[int], ring_type: str = STANDARD,
         return _words([t[key] for t in tabs], device)
 
     def rows(key):  # [L, N] words (the Shoup quotients may pass 2^63)
-        return torch.tensor([[mm.signed(v) for v in t[key]] for t in tabs],
-                            dtype=torch.int64, device=device)
+        words = np.array([t[key] for t in tabs], dtype=np.uint64).view(np.int64)
+        return torch.from_numpy(words).to(device)
 
     def pairs(key):  # [L, N, 2]: each table word beside its Shoup quotient
         return torch.stack([_residues([t[key] for t in tabs], device), rows(key + "_shoup")],
@@ -427,7 +426,7 @@ def new_ring(n: int, moduli: list[int], ring_type: str = STANDARD,
 
 def _residues(values, device) -> torch.Tensor:
     """int64 tensor of values below 2^63 (residues, moduli)."""
-    return torch.tensor(values, dtype=torch.int64, device=device)
+    return torch.from_numpy(np.array(values, dtype=np.int64)).to(device)
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,8 @@ the 5^j rotation-group index, so slot j holds the evaluation at zeta^{5^j}
 (rotations are slot shifts, conjugation is complex conjugation).  The
 embedding is host numpy float64 (PREC64) for scales up to 2^50 and Python
 Decimal with exact big-int rounding (PREC128, encoder.go:325
-embedArbitrary) above; the only device work is one ring NTT / INTT.
+embedArbitrary) above; the only device work is one ring NTT / INTT.  The
+FFTs' complex products are ``utils/fp.py:cmul``'s, the same on every host.
 
 Layout (full slots): real parts -> coefficients [0, N/2), imaginary parts
 -> [N/2, N) (schemes/ckks/utils.go:128-147), then the forward NTT.  On the
@@ -23,6 +24,7 @@ import torch
 
 from matrix_fhe_tpu_torch.rlwe.elements import MetaData, Plaintext
 from matrix_fhe_tpu_torch.schemes.ckks.params import CKKSParameters
+from matrix_fhe_tpu_torch.utils.fp import cmul
 
 
 class Encoder:
@@ -53,7 +55,7 @@ class Encoder:
             w = self.roots[idx]
             blocks = v.reshape(-1, ln)
             a, b = blocks[:, :lenh], blocks[:, lenh:]
-            blocks[:, :lenh], blocks[:, lenh:] = a + b, (a - b) * w[None, :]
+            blocks[:, :lenh], blocks[:, lenh:] = a + b, cmul(a - b, w[None, :])
         v /= n
         return v[_bit_reverse_perm(n)]
 
@@ -68,7 +70,7 @@ class Encoder:
             log_gap = logm - 2 - loglen
             w = self.roots[(self.rot_group[:lenh] & (lenq - 1)) << log_gap]
             blocks = v.reshape(-1, ln)
-            a, b = blocks[:, :lenh], blocks[:, lenh:] * w[None, :]
+            a, b = blocks[:, :lenh], cmul(blocks[:, lenh:], w[None, :])
             blocks[:, :lenh], blocks[:, lenh:] = a + b, a - b
         return v
 

@@ -27,7 +27,7 @@ from matrix_fhe_tpu_torch.circuits.ckks import staged
 from matrix_fhe_tpu_torch.fast import fboot, feval
 from matrix_fhe_tpu_torch.ops import ntt_cuda
 from matrix_fhe_tpu_torch.rlwe import keys as K
-from matrix_fhe_tpu_torch.utils import launches, serialization
+from matrix_fhe_tpu_torch.utils import device, launches, serialization
 
 FIXTURE = pathlib.Path(__file__).parent / "data" / "fboot_logn6_jax.mft.gz"
 # tests/test_fboot.py:U64_BOOT_DIGEST (that module imports jax)
@@ -165,3 +165,28 @@ def test_scalar_constants_are_cached(session):
     a = ev._double_rns_scalars(3, 0.5 + 0.25j, Fraction(1 << 10))
     b = ev._double_rns_scalars(3, 0.5 + 0.25j, Fraction(1 << 10))
     assert a[0].data_ptr() == b[0].data_ptr() and a[0].is_cuda
+
+
+def test_graph_keeps_its_constants(session):
+    """A captured stage keeps every device constant it read: after the
+    shared cache is cleared, its memory handed back and written over, a
+    replay gives the same limbs as before and as the eager call."""
+    ev = session.fast.ev
+
+    def fn(c):
+        c = ev.add_const(ev.mul_const(c, 0.6180339887), 0.3 - 0.7j)
+        return ev.rescale(ev.mul_const_complex(c, 0.5 + 0.25j))
+
+    g = staged.graph_ciphertext_fn(ev, session.p.params, fn, name="constants")
+    ct = feval.ct_to_fast(session.ct)
+    want = g(ct)
+    assert next(iter(g.entries.values())).constants  # recorded at capture
+    device.clear_constants()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    junk = [torch.full((n,), -1, dtype=torch.int64, device="cuda")
+            for n in (1, 8, 64, 512, 4096) for _ in range(2000)]
+    torch.cuda.synchronize()
+    got = g(ct)
+    assert _same(got, want) and _same(got, fn(ct))
+    del junk

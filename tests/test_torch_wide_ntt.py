@@ -119,7 +119,8 @@ def test_wrappers_check_their_input():
     (21, 14, 8), (1, 14, 8), (17, 14, 8), (42, 14, 8),        # bootstrap-sized launches
     (49, 14, 8), (50, 14, 4), (153, 14, 4),                   # keygen-sized launches
     (1, 6, 1), (300, 10, 1), (6, 13, 8), (300, 13, 2), (100, 13, 2),
-    (1, 15, 16), (4, 15, 16), (5, 15, 8), (640, 15, 8), (1, 16, 16), (640, 16, 8)])
+    (1, 15, 16), (4, 15, 16), (5, 15, 16), (640, 15, 8), (1, 16, 16), (640, 16, 8),
+    (7, 15, 16), (8, 15, 8), (5, 16, 16), (7, 16, 16), (8, 16, 8)])
 def test_geometry(rows, logn, c):
     """The rule the sweep measured (``ntt64_cuda.geometry``'s docstring)."""
     assert ntt64_cuda.geometry(rows, 1 << logn, H100_SMS) == c

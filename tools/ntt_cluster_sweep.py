@@ -22,10 +22,11 @@ at ``chip_smoke.py`` phase 10's sizes (N = 2^6, 2^10, 2^14, 2^15, 2^16 at
 bootstrap and circuits at N = 2^14 (4 to 126 rows), forward and inverse, at
 every C the kernel is built for there (``ntt64_cuda.clusters``), L2 warm;
 and the row counts between, where the rule changes (N = 2^13 at phase 10's
-rows and 126, 2^14 at 64-126 rows, 2^15 at 2-4 and 126 rows, 2^16 at 2-4
+rows and 126, 2^14 at 64-126 rows, 2^15 at 2-8 and 126 rows, 2^16 at 2-8
 rows).  With ``--shapes``
-(``chip_smoke.py``'s ``_build/b4_shapes.json``), also every shape phases 8-13
-and 16 launched B4 at, in its direction and ring (the CI ring's through the
+(``chip_smoke.py``'s ``_build/b4_shapes.json``, or ``b4_shapes_n16.json``
+from ``tools/staged_phase.py n16``), also every shape the phases recorded
+launched B4 at, in its direction and ring (the CI ring's through the
 CI mode).  Then the ladder below one transform at [1, 1], [2, 7] and
 [2, 21] x 2^14 and every C: an empty launch of B4's geometry, the row's data
 movement alone (``tools/ntt64_ladder.cu``, rungs 0 and 1), and the full
@@ -136,7 +137,7 @@ B4_STEP = [(14, lead, limbs) for lead, limbs in (
 B4_RULE = [(13, lead, limbs) for lead, limbs in (((1,), 1), ((1,), 9), ((2,), 21), ((6,), 21))] + [
     (15, (6,), 21)] + [
     (14, lead, limbs) for lead, limbs in (((4,), 16), ((4,), 21), ((5,), 20), ((6,), 21))] + [
-    (logn, lead, 1) for logn in (15, 16) for lead in ((2,), (3,), (4,))]
+    (logn, lead, 1) for logn in (15, 16) for lead in ((2,), (3,), (4,), (5,), (6,), (7,), (8,))]
 B4_LADDER = [(14, (1,), 1), (14, (2,), 7), (14, (2,), 21)]
 LADDER_SOURCE = Path(__file__).resolve().parent / "ntt64_ladder.cu"
 

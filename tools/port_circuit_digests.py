@@ -11,8 +11,13 @@ run here on the JAX package's) and ``DIGESTS``; this runs every case on the
 JAX package on the CPU and prints the ``DIGESTS`` dict to paste in, the
 sha256 that ``digest`` (tests/test_torch_polynomial.py) gives of its
 output.  ``module:case`` runs that case alone (the module's context is
-still made whole).  The circuits run eagerly, as the JAX package's own tests run them:
-minutes a module.
+still made whole).  A module may give a case a context of its own
+(``JAX_CONTEXTS``: {case: function}), and a case that returns a string
+(a digest of its own, a chain of primes) is printed as it is.  The
+circuits run eagerly, as the JAX package's own tests run them: minutes a
+module.  ``test_torch_wboot:n16_dft_matrices`` (the logN-16 matrices of
+chip_smoke.py's phase 28) takes ~7 min and ~4 GB, ``wide61_bootstrap``
+~13 min.
 
 The modules of ring switching, the bridge, ring packing, the packed
 bootstrap, noise and BGV / BFV (JAX on the CPU, context + cases):
@@ -67,16 +72,21 @@ def main() -> None:
 
     for arg in sys.argv[1:] or MODULES:
         name, _, only = arg.partition(":")
-        t0 = time.perf_counter()
         mod = importlib.import_module(name)
-        ctx = mod.jax_context()
-        print(f"# {name}: context {time.perf_counter() - t0:.1f} s", flush=True)
+        contexts: dict = {}
         lines = []
         for case, fn in mod.CASES.items():
             if only and case != only:
                 continue
+            make = getattr(mod, "JAX_CONTEXTS", {}).get(case, mod.jax_context)
+            if make not in contexts:
+                t0 = time.perf_counter()
+                contexts[make] = make()
+                print(f"# {name}: context {make.__name__} {time.perf_counter() - t0:.1f} s",
+                      flush=True)
             t1 = time.perf_counter()
-            lines.append(f'    "{case}": "{digest(fn(JAX, ctx))}",')
+            out = fn(JAX, contexts[make])
+            lines.append(f'    "{case}": "{out if isinstance(out, str) else digest(out)}",')
             print(f"# {case}: {time.perf_counter() - t1:.1f} s", flush=True)
         print(f"{name}.DIGESTS = {{\n" + "\n".join(lines) + "\n}", flush=True)
 
