@@ -378,6 +378,29 @@ user of the library runs:
     only on the fast path; B2, B3, B5 and B6 are off it).  Its loss table
     joins the others and b4_shapes.json.
 
+From phase 8 on, every key switch and every default-gadget keygen of the
+u64 evaluator runs through the key-switch graph caches (rlwe/evaluator.py
+_pgraph, rlwe/keys.py _EVK_GRAPH_CACHE, on utils/graphs.py): one CUDA
+graph a (name, parameters, level) and input signature, captured at its
+first call and replayed after, so the earlier phases' card == CPU gates
+hold the graphed path to the eager one on the CPU.  Run after phase 25:
+
+29. the key-switch graph caches on the sessions of phases 23 (the flagship
+    step and a rotation by each of its 8 galois keys), 21 (one
+    blind-rotated slot), 15 (Matrix-CKKS mul_relin + rescale), 16 (CI
+    mul_relin + rescale) and 8 (its 8 galois keys' deterministic part).
+    For each, with both caches emptied first: the first call (its eager
+    warm-ups and captures apart), graphed == eager (the same call within
+    utils/graphs.py eager()) bit for bit on the first and a second call,
+    and == the earlier phase's output; each graph's kernel nodes by name
+    == a capture of its eager body on its inputs, its B4 and B5 nodes ==
+    the wrappers' launches in an eager run of the body, and B4's and B5's
+    launches of an eager call == those of a graphed call outside the
+    graphs plus the graphs' nodes times their replays; the eager and the
+    graphed latency (median of 10, of 3 for the slot); the caches'
+    entries, the shared pool's bytes and the peak device memory.  Alone:
+    python tools/graph_phase.py.
+
 Before the kernels line, one "phase time: <n> <seconds>" line a phase (a
 phase's continuation, the B4 checks after its group, counts to it; the
 builds to phase 2).
@@ -388,9 +411,9 @@ w22; counts zeroed just before each run and read just after; ntt_fwd/ntt_bwd
 also give launches_by_path: phase 4's, phase 8's cold pass, and phase 9's
 bootstrap and evaluate apart; ntt64_fwd/ntt64_bwd, kernel B4, phase 11's
 three PN14QP438 requests, with launches_by_path over phases 8, 9, 11, 12,
-13, 17-25 and 28 (eager) and phases 27 and 28's kernel nodes; ntt3n_fwd/ntt3n_bwd, kernel B5,
+13, 17-25 and 28 (eager) and phases 27, 28 and 29's kernel nodes; ntt3n_fwd/ntt3n_bwd, kernel B5,
 phase 15's operations, with launches_by_path over its keygen and each
-operation; ntt64_ci_fwd / ntt64_ci_bwd, B4 on the CI ring, phase 16's
+operation and phase 29's kernel nodes; ntt64_ci_fwd / ntt64_ci_bwd, B4 on the CI ring, phase 16's
 session, by stage, phase 18's CI side and phase 25's scheme switching;
 ntt_sharded_local, kernel B6, the 8 launches of phase 26's 8-rank NTT, one a rank, with launches_by_path
 over its worlds; B1's and B4's launches_by_path also count phase 26's
@@ -989,13 +1012,28 @@ def boot_keys(p, times: dict):
     return sk, evk
 
 
+def _launched(wrapper, fn, entries=("ntt_fwd", "ntt_bwd"),
+              counters=("fwd_launches", "bwd_launches")):
+    """fn() and the launches of ``wrapper``'s kernel in it, by direction:
+    those its entry points ``entries`` made (their ``counters``, read just
+    before and just after) and those the CUDA graphs replayed under their
+    names (utils/graphs.py replays: a capture counts none, a replay every
+    launch the capture recorded)."""
+    from matrix_fhe_tpu_torch.utils import graphs
+    before = [getattr(wrapper, c) for c in counters]
+    with graphs.replays() as rep:
+        out = fn()
+    return out, {d: getattr(wrapper, c) - b + rep.count(f"{wrapper.__name__}.{e}")
+                 for d, c, e, b in zip(("fwd", "bwd"), counters, entries, before)}
+
+
 def _counted(dev, fn):
-    """fn() and B1's launches in it (counts zeroed just before, read just after)."""
+    """fn() and B1's launches in it (counts zeroed just before, read just
+    after; the graphs' replays with them)."""
     from matrix_fhe_tpu_torch.ops import ntt_cuda
     _sync(dev)
     ntt_cuda.fwd_launches = ntt_cuda.bwd_launches = 0
-    out = fn()
-    return out, {"fwd": ntt_cuda.fwd_launches, "bwd": ntt_cuda.bwd_launches}
+    return _launched(ntt_cuda, fn)
 
 
 def boot_session(p, sk, evk, times: dict, repeats: int = 0) -> dict:
@@ -1241,11 +1279,13 @@ def graph_counts(st) -> dict:
     return out
 
 
-def _pool_bytes(pool) -> int:
+def _pool_bytes(pool, held: bool = False) -> int:
     """The bytes the caching allocator holds in the graphs' memory pool
-    ``pool`` (its segments)."""
-    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-               if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
+    ``pool`` (its segments), or with ``held`` those of its blocks in use
+    (the graphs' outputs and whatever else a graph keeps)."""
+    segs = [seg for seg in torch.cuda.memory_snapshot()
+            if tuple(seg.get("segment_pool_id", ())) == tuple(pool)]
+    return sum(seg["allocated_size" if held else "total_size"] for seg in segs)
 
 
 def staged_phase(path: str, s: dict, rows, sk, site: int, dev, smi: str, ct2=None,
@@ -1262,6 +1302,7 @@ def staged_phase(path: str, s: dict, rows, sk, site: int, dev, smi: str, ct2=Non
     with the numbers.  On the CPU (a dry run: stub the torch.cuda memory
     calls, _device_ms, graph_counts and _pool_bytes) the stages run eagerly."""
     from matrix_fhe_tpu_torch.circuits.ckks import staged
+    from matrix_fhe_tpu_torch.ops import ntt64_cuda, ntt_cuda
     bts, ct = s["bts"], s["ct"]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1284,15 +1325,20 @@ def staged_phase(path: str, s: dict, rows, sk, site: int, dev, smi: str, ct2=Non
     (eager2, b1_eager), b4_eager = _b4_counted(dev, lambda: _counted(
         dev, lambda: bts.bootstrap(ct2)))
     (out2, b1_replay), b4_replay = _b4_counted(dev, lambda: _counted(dev, lambda: st(ct2)))
+    wrappers = {"B1": {"fwd": ntt_cuda.fwd_launches, "bwd": ntt_cuda.bwd_launches},
+                "B4": {"fwd": ntt64_cuda.fwd_launches, "bwd": ntt64_cuda.bwd_launches}}
     assert _same(out2, eager2), f"{path}: staged bootstrap of a second input != bootstrap"
     assert not _same(out2, first)
     eager = {"B1": b1_eager, "B4": b4_eager}
     for k, c in s["counts"].items():  # phase 9's or 12's count of one bootstrap
         assert eager[k] == c, f"{path}: {k} launches {eager[k]} != {c}"
-    # no stage runs eagerly: a replayed bootstrap passes through no wrapper (on
-    # the CPU, a dry run, every stage is eager)
+    # no stage runs eagerly: a replayed bootstrap passes through no wrapper,
+    # and its graphs replay every launch of the eager bootstrap (on the CPU,
+    # a dry run, every stage is eager)
     if dev.type == "cuda":
-        assert b1_replay == b4_replay == {"fwd": 0, "bwd": 0}, (b1_replay, b4_replay)
+        zero = {"fwd": 0, "bwd": 0}
+        assert wrappers == {"B1": zero, "B4": zero}, wrappers
+        assert {"B1": b1_replay, "B4": b4_replay} == eager, (b1_replay, b4_replay)
 
     # stage by stage: against the eager stages, and ct's against boot_stages'
     for c in (ct, ct2) if stagewise else ():
@@ -1327,14 +1373,14 @@ def staged_phase(path: str, s: dict, rows, sk, site: int, dev, smi: str, ct2=Non
           f"bootstrap, stages {', '.join(names)} | {smi}")
     print(f"phase staged: {path}: first call {first_s * 1e3:.3f} ms: eager warm-up "
           f"{warm_s * 1e3:.3f} ms, capture + instantiate {capture_s * 1e3:.3f} ms, the "
-          f"replays and copies {(first_s - warm_s - capture_s) * 1e3:.3f} ms; wrapper "
-          f"launches in it B1 {b1_first}, B4 {b4_first} | {smi}")
+          f"replays and copies {(first_s - warm_s - capture_s) * 1e3:.3f} ms; launches in "
+          f"it (the warm-up's and the replays') B1 {b1_first}, B4 {b4_first} | {smi}")
     print(f"phase staged: {path}: bootstrap of two inputs == bts.bootstrap bit for bit"
           f"{', every stage == the eager stage' if stagewise else ''}; B1 kernel nodes "
           f"{nodes['B1']}, B4 kernel nodes "
           f"{nodes['B4']} == the eager bootstrap's launches; {nodes['kernels']} kernel nodes "
           f"and {nodes['other']} other nodes a bootstrap; 0 wrapper launches in a replayed "
-          f"bootstrap | {smi}")
+          f"bootstrap, whose graphs replay the eager bootstrap's launches | {smi}")
     print(f"phase staged: {path}: staged bootstrap, {STAGED_REPEATS} replays: "
           f"{', '.join(f'{t:.3f}' for t in reps)} ms, median {statistics.median(reps):.3f} ms "
           f"(device time queued {device:.3f} ms a bootstrap); eager warm median "
@@ -1385,6 +1431,7 @@ def n16_phase(dev, smi: str, rng, int32_ops_per_s: float, clock: PhaseClock) -> 
     from matrix_fhe_tpu_torch.fast import fboot
     from matrix_fhe_tpu_torch.rlwe import encryptor
     from matrix_fhe_tpu_torch.schemes import ckks
+    from matrix_fhe_tpu_torch.utils import graphs
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
@@ -1478,6 +1525,12 @@ def n16_phase(dev, smi: str, rng, int32_ops_per_s: float, clock: PhaseClock) -> 
     print(f"phase n16: wide bootstrap == u64 bootstrap (btp.Evaluator) limb for limb on the "
           f"same keys and input; u64: evaluator {u64_times['btp.Evaluator (u64)']:.3f} ms, "
           f"bootstrap {u64_times['u64 bootstrap']:.3f} ms | {smi}")
+    ks = [g for _, g in key_switch_graphs()]
+    print(f"phase n16: the key-switch graph caches after keygen, the u64 evaluator and its "
+          f"bootstrap: {len(ks)} graphs, their static inputs {_static_bytes(ks) / 2**20:.1f} "
+          f"MiB (shared by shape: one copy of a gadget for every level), the shared pool "
+          f"{_pool_bytes(graphs.SHARED.pool(dev)) / 2**20:.1f} MiB | {smi}")
+    del ks
     del u64, out_u64
     peak = torch.cuda.max_memory_allocated() - held
     print(f"phase n16: peak device memory above the {held / 2**20:.1f} MiB the earlier phases "
@@ -1511,11 +1564,10 @@ def n16_phase(dev, smi: str, rng, int32_ops_per_s: float, clock: PhaseClock) -> 
 def _counted_in(wrapper, dev, fn):
     """fn() and the launches of ``wrapper``'s kernel (a module with
     ``fwd_launches`` and ``bwd_launches``) in it: counts zeroed just before,
-    read just after."""
+    read just after, the graphs' replays with them."""
     _sync(dev)
     wrapper.fwd_launches = wrapper.bwd_launches = 0
-    out = fn()
-    return out, {"fwd": wrapper.fwd_launches, "bwd": wrapper.bwd_launches}
+    return _launched(wrapper, fn)
 
 
 def _b4_counted(dev, fn):
@@ -1527,15 +1579,18 @@ def _b4_counted(dev, fn):
 def _shapes_in(wrapper, fn, seen: dict, names=("ntt_fwd", "ntt_bwd"), counts=None):
     """fn() with every call of ``wrapper``'s entry points ``names`` (forward,
     inverse; each takes (x, ring)) recorded into ``seen``:
-    {(direction, shape, moduli): ring}, and the calls on a CUDA tensor (the
-    kernel's launches) counted into ``counts`` by the same key."""
+    {(direction, shape, moduli): ring}, and the kernel's launches counted
+    into ``counts`` by the same key: the calls on a CUDA tensor outside a
+    capture, and the launches the CUDA graphs replayed under the entry
+    points' names (utils/graphs.py replays, whose rings join ``seen``)."""
+    from matrix_fhe_tpu_torch.utils import graphs
     fwd, bwd = (getattr(wrapper, name) for name in names)
 
     def recording(direction, kernel):
         def call(x, ring):
             key = (direction, tuple(x.shape), ring.moduli_tuple)
             seen.setdefault(key, ring)
-            if counts is not None and x.is_cuda:
+            if counts is not None and x.is_cuda and not torch.cuda.is_current_stream_capturing():
                 counts[key] = counts.get(key, 0) + 1
             return kernel(x, ring)
         return call
@@ -1543,10 +1598,19 @@ def _shapes_in(wrapper, fn, seen: dict, names=("ntt_fwd", "ntt_bwd"), counts=Non
     setattr(wrapper, names[0], recording("fwd", fwd))
     setattr(wrapper, names[1], recording("bwd", bwd))
     try:
-        return fn()
+        with graphs.replays() as rep:
+            out = fn()
     finally:
         setattr(wrapper, names[0], fwd)
         setattr(wrapper, names[1], bwd)
+    directions = {f"{wrapper.__name__}.{e}": d for d, e in zip(("fwd", "bwd"), names)}
+    for name, shape, ring, n in rep.items():
+        if name in directions:
+            key = (directions[name], shape, ring.moduli_tuple)
+            seen.setdefault(key, ring)
+            if counts is not None:
+                counts[key] = counts.get(key, 0) + n
+    return out
 
 
 def b4_shapes(fn, seen: dict, counts=None):
@@ -2076,15 +2140,16 @@ def _b5_counted(dev, fn):
 
 
 def _ci_counted(dev, fn):
-    """fn() and B4's launches on the CI ring in it, and on the standard ring."""
+    """fn() and B4's launches on the CI ring in it, and on the standard ring
+    (the graphs' replays with them)."""
     from matrix_fhe_tpu_torch.ops import ntt64_cuda
     _sync(dev)
     ntt64_cuda.ci_fwd_launches = ntt64_cuda.ci_bwd_launches = 0
     ntt64_cuda.fwd_launches = ntt64_cuda.bwd_launches = 0
-    out = fn()
+    (out, std), ci = _launched(ntt64_cuda, lambda: _launched(ntt64_cuda, fn), CI_ENTRIES,
+                               ("ci_fwd_launches", "ci_bwd_launches"))
     _sync(dev)
-    return out, {"fwd": ntt64_cuda.ci_fwd_launches, "bwd": ntt64_cuda.ci_bwd_launches,
-                 "standard": ntt64_cuda.fwd_launches + ntt64_cuda.bwd_launches}
+    return out, {"fwd": ci["fwd"], "bwd": ci["bwd"], "standard": std["fwd"] + std["bwd"]}
 
 
 def b5_shapes(fn, seen: dict):
@@ -2535,7 +2600,8 @@ def matrix_phases(dev, smi: str, rng, int32_ops_per_s: float, clock: PhaseClock)
             "ci_launches": total(ci["counts"].values()),
             "ci_by_path": {k: {"fwd": v["fwd"], "bwd": v["bwd"]}
                            for k, v in ci["counts"].items()},
-            "ci_session": {"params": ci["params"], "keys": ci["keys"]}}
+            "ci_session": {k: ci[k] for k in ("params", "keys", "cts", "outs")},
+            "matrix_session": {k: ms[k] for k in ("params", "keys", "cts", "outs")}}
 
 # -- phases 17-20: ring switching and packing, the bridge, the packed bootstrap, BGV/BFV --
 
@@ -3199,11 +3265,9 @@ def blindrot_session(dev, times: dict) -> dict:
                                           metadata=MetaData(is_ntt=True))))
     ev = blindrot.Evaluator(pb, pl)
     slots = range(len(BR_VALUES))
-    before = (ntt64_cuda.fwd_launches, ntt64_cuda.bwd_launches)
-    out = _timed(times, f"evaluate, {len(BR_VALUES)} slots", dev, lambda: ev.evaluate(
-        ct, {i: test_poly for i in slots}, brk))
-    launches = {"fwd": ntt64_cuda.fwd_launches - before[0],
-                "bwd": ntt64_cuda.bwd_launches - before[1]}
+    out, launches = _launched(ntt64_cuda, lambda: _timed(
+        times, f"evaluate, {len(BR_VALUES)} slots", dev, lambda: ev.evaluate(
+            ct, {i: test_poly for i in slots}, brk)))
 
     def decrypt(i):
         c = pb.ring_q.intt(decryptor.decrypt(pb, sk_br, out[i]).value)
@@ -3648,6 +3712,7 @@ def rgsw_multiparty_phases(dev, smi: str, rng, int32_ops_per_s: float, clock: Ph
           f"NTT) for the keys (512 RGSW, 11 galois), the test polynomial, the LWE ciphertext, "
           f"the 4 blind-rotated slots and their decryptions (CPU reference "
           f"{cb['seconds']:.2f} s, in a worker process); B4 launches {counts['21b']}")
+    blindrot29 = {k: b[k] for k in ("params", "keys", "test_poly", "ct", "out")}
     del b, cb
     peak = torch.cuda.max_memory_allocated()
     print(f"phase rgsw: peak device memory {(peak - held) / 2**20:.1f} MiB above the "
@@ -3720,7 +3785,7 @@ def rgsw_multiparty_phases(dev, smi: str, rng, int32_ops_per_s: float, clock: Ph
               f"{walls[phase]:.3f} s wall time, bound x launches "
               f"{sum(r['launches'] * r['bound_ms'] for r in rows):.4f} ms | {smi}")
         loss += rows
-    return {"shape_rows": shape_rows, "loss": loss,
+    return {"shape_rows": shape_rows, "loss": loss, "blindrot": blindrot29,
             "by_path": {f"{PHASE_NAMES[k]} (phase {k})": v for k, v in counts.items()}}
 
 
@@ -3823,10 +3888,10 @@ def surface_phases(dev, smi: str, rng, int32_ops_per_s: float, clock: PhaseClock
         torch.cuda.synchronize()
         ntt64_cuda.fwd_launches = ntt64_cuda.bwd_launches = 0
         t0 = time.perf_counter()
-        o = step(*args)
+        o, launched = _launched(ntt64_cuda, lambda: step(*args))
         torch.cuda.synchronize()
         lat.append((time.perf_counter() - t0) * 1e3)
-        steps.append({"fwd": ntt64_cuda.fwd_launches, "bwd": ntt64_cuda.bwd_launches})
+        steps.append(launched)
         assert _same(tuple(o), out), f"phase 23 request {r}: != the first step"
     peak = torch.cuda.max_memory_allocated()
     assert all(c == steps[0] for c in steps) and min(steps[0].values()) > 0, steps
@@ -3900,6 +3965,8 @@ def surface_phases(dev, smi: str, rng, int32_ops_per_s: float, clock: PhaseClock
     print(f"phase serialization: the reloaded params, keys and ciphertexts run the step "
           f"bit-identically; every blob's sha256 == the CPU worker's blob of the same object; "
           f"the card's encoder reproduces tests/test_serialization.py:105's plaintext digest")
+    flagship29 = {"params": params, "rlk": rlk, "ct1": ct1, "ct2": ct2, "step": step,
+                  "gks": {k.gal_el: k for name, k in objs.items() if name.startswith("galois")}}
     del loaded, objs, f, step
     clock.done(24)
 
@@ -3949,7 +4016,232 @@ def surface_phases(dev, smi: str, rng, int32_ops_per_s: float, clock: PhaseClock
                       "phase 25, CI ring", ci=True)
     clock.done(25)
     return {"shape_rows": shape_rows, "ci_rows": ci_rows, "loss": loss, "ci_loss": ci_loss,
-            "by_path": by_path, "ci_launches": ci_by}
+            "by_path": by_path, "ci_launches": ci_by, "flagship": flagship29}
+
+
+# -- 29. the key-switch graph caches ---------------------------------------------------------
+
+GRAPH_REPEATS = 10        # eager and graphed calls timed an item (the blind-rotated slot: 3)
+GRAPH_SLOT_REPEATS = 3
+
+
+def key_switch_graphs() -> list:
+    """Every captured graph of the key-switch caches (rlwe/evaluator.py's and
+    rlwe/keys.py's): (cache key, utils/graphs.py Graph)."""
+    from matrix_fhe_tpu_torch.rlwe import evaluator as rlwe_eval, keys as K
+    return [(key, g) for cache in (rlwe_eval._GRAPH_CACHE, K._EVK_GRAPH_CACHE)
+            for key, fn in cache.items() for g in fn.entries.values()]
+
+
+def clear_key_switch_graphs() -> None:
+    """Both key-switch caches emptied, every graph freed."""
+    from matrix_fhe_tpu_torch.rlwe import evaluator as rlwe_eval, keys as K
+    for cache in (rlwe_eval._GRAPH_CACHE, K._EVK_GRAPH_CACHE):
+        for fn in cache.values():
+            fn.release()
+        cache.clear()
+
+
+def _ntt_entries() -> dict:
+    """B4's entry points (its CI mode with them: one kernel) and B5's:
+    (module, entry point, its count, direction)."""
+    from matrix_fhe_tpu_torch.ops import ntt3n_cuda, ntt64_cuda
+    return {"B4": [(ntt64_cuda, "ntt_fwd", "fwd_launches", "fwd"),
+                   (ntt64_cuda, "ntt_bwd", "bwd_launches", "bwd"),
+                   (ntt64_cuda, "ntt_ci_fwd", "ci_fwd_launches", "fwd"),
+                   (ntt64_cuda, "ntt_ci_bwd", "ci_bwd_launches", "bwd")],
+            "B5": [(ntt3n_cuda, "ntt_fwd", "fwd_launches", "fwd"),
+                   (ntt3n_cuda, "ntt_bwd", "bwd_launches", "bwd")]}
+
+
+def _by_kernel(count) -> dict:
+    """{"B4" and "B5": {direction: the sum of count(module, entry point, counter)}}."""
+    return {k: {d: sum(count(m, e, c) for m, e, c, dd in rows if dd == d) for d in ("fwd", "bwd")}
+            for k, rows in _ntt_entries().items()}
+
+
+def _ntt_launched(fn):
+    """fn() and B4's and B5's launches in it, by direction: those their
+    wrappers made (counts zeroed just before, read just after) and those
+    the CUDA graphs replayed (utils/graphs.py replays)."""
+    from matrix_fhe_tpu_torch.utils import graphs
+    for rows in _ntt_entries().values():
+        for m, _, c, _ in rows:
+            setattr(m, c, 0)
+    with graphs.replays() as rep:
+        out = fn()
+    return (out, _by_kernel(lambda m, e, c: getattr(m, c)),
+            _by_kernel(lambda m, e, c: rep.count(f"{m.__name__}.{e}")))
+
+
+def _ntt_nodes(names) -> dict:
+    return {k: {d: sum(f"{tag}_{d}_kernel" in n for n in names) for d in ("fwd", "bwd")}
+            for k, tag in (("B4", "ntt64"), ("B5", "ntt3n"))}
+
+
+def check_graph_nodes() -> list:
+    """Each graph of the key-switch caches against its eager body on the
+    graph's static inputs: its kernel nodes by name == a capture of the
+    eager body's, and its B4 and B5 nodes == the launches its capture
+    recorded (what each replay counts).  One row a graph: (cache key,
+    kernel nodes, B4 and B5 nodes, other nodes)."""
+    from matrix_fhe_tpu_torch.utils import launches
+    rows = []
+    for key, g in key_switch_graphs():
+        names = launches.graph_nodes(g.graph)
+        kernels = [n for n in names if not n.startswith("node type")]
+        body = [n for n in launches.graph_kernels(g.eager, calls=1)
+                if not n.startswith("node type")]
+        assert sorted(kernels) == sorted(body), f"phase 29 {key}: kernel nodes != the body's"
+        nodes = _ntt_nodes(kernels)
+        recorded = _by_kernel(lambda m, e, c: g.launches.count(f"{m.__name__}.{e}"))
+        assert nodes == recorded, f"phase 29 {key}: NTT nodes {nodes} != recorded {recorded}"
+        rows.append((key, len(kernels), nodes, len(names) - len(kernels)))
+    return rows
+
+
+def _static_bytes(graph_list) -> int:
+    """The bytes of the distinct static input buffers of ``graph_list``
+    (utils/graphs.py Graphs, which share them by shape)."""
+    return sum({t.data_ptr(): t.numel() * t.element_size()
+                for g in graph_list for t in g.inputs}.values())
+
+
+def graph_item(name: str, fn, dev, smi: str, repeats: int = GRAPH_REPEATS,
+               want=None, want_from: str = "") -> dict:
+    """Phase 29 on one path: fn() through the key-switch graph caches,
+    emptied first, against fn() within ``graphs.eager()`` (and ``want``,
+    the earlier phase's output, where given): the first call (warm-up and
+    capture apart), a second call, the graphs' nodes against the eager
+    bodies and the launches their captures recorded, B4's and B5's launches
+    of an eager call against those of a graphed one (its wrappers' and its
+    graphs' replays, == the graphs' nodes times their replays), both
+    latencies, the cache's entries, the pool, the static inputs and the
+    peak memory."""
+    from matrix_fhe_tpu_torch.utils import graphs
+    clear_key_switch_graphs()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    first = fn()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    seconds = [g.seconds for _, g in key_switch_graphs()]
+    warm_s, capture_s = (sum(x[k] for x in seconds) for k in ("warm-up", "capture"))
+    with graphs.eager():
+        eager, eager_n, eager_replayed = _ntt_launched(fn)
+    assert _same(first, eager), f"phase 29 {name}: graphed != eager"
+    assert eager_replayed == {k: {"fwd": 0, "bwd": 0} for k in ("B4", "B5")}, eager_replayed
+    if want is not None:
+        assert _same(first, want), f"phase 29 {name}: != {want_from}'s output"
+    for _, g in key_switch_graphs():
+        g.replays = 0
+    again, outside, in_graphs = _ntt_launched(fn)
+    assert _same(again, eager), f"phase 29 {name}: a second graphed call != eager"
+    replays = [g.replays for _, g in key_switch_graphs()]
+    rows = check_graph_nodes()   # in key_switch_graphs' order
+    nodes_x = {k: {d: sum(r[2][k][d] * n for r, n in zip(rows, replays)) for d in ("fwd", "bwd")}
+               for k in ("B4", "B5")}
+    assert in_graphs == nodes_x, f"phase 29 {name}: replayed {in_graphs} != nodes x replays"
+    total = {k: {d: outside[k][d] + in_graphs[k][d] for d in ("fwd", "bwd")} for k in outside}
+    assert total == eager_n, f"phase 29 {name}: launches {total} != the eager call's {eager_n}"
+    lat = {}
+    for what in ("eager", "graphed"):
+        ts = []
+        for _ in range(repeats):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if what == "eager":
+                with graphs.eager():
+                    fn()
+            else:
+                fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        lat[what] = ts
+    from matrix_fhe_tpu_torch.rlwe import evaluator as rlwe_eval, keys as K
+    entries = {c: (len(cache), sum(len(f.entries) for f in cache.values()))
+               for c, cache in (("evaluator", rlwe_eval._GRAPH_CACHE),
+                                ("keygen", K._EVK_GRAPH_CACHE))}
+    pool = _pool_bytes(graphs.SHARED.pool(dev))
+    pool_held = _pool_bytes(graphs.SHARED.pool(dev), held=True)
+    static = _static_bytes([g for _, g in key_switch_graphs()])
+    peak = torch.cuda.max_memory_allocated() - held
+    med = {k: statistics.median(v) for k, v in lat.items()}
+    print(f"phase graphs: {name}: graphed == eager bit for bit"
+          f"{f' == {want_from}' if want is not None else ''}, first and second call; eager "
+          f"median {med['eager']:.3f} ms, graphed median {med['graphed']:.3f} ms ({repeats} "
+          f"calls each; graphed {', '.join(f'{t:.3f}' for t in lat['graphed'])}) | {smi}")
+    print(f"phase graphs: {name}: first call {first_s * 1e3:.3f} ms: eager warm-up "
+          f"{warm_s * 1e3:.3f} ms, capture + instantiate {capture_s * 1e3:.3f} ms, the rest "
+          f"{(first_s - warm_s - capture_s) * 1e3:.3f} ms | {smi}")
+    print(f"phase graphs: {name}: cache entries: evaluator {entries['evaluator'][0]} keys / "
+          f"{entries['evaluator'][1]} graphs, keygen {entries['keygen'][0]} / "
+          f"{entries['keygen'][1]}; the shared pool {pool / 2**20:.1f} MiB (the most it has "
+          f"held: a freed graph's blocks stay in it), {pool_held / 2**20:.1f} MiB of it in use "
+          f"by these graphs; their static inputs {static / 2**20:.1f} MiB (shared by shape); "
+          f"peak device memory {peak / 2**20:.1f} MiB above the {held / 2**20:.1f} MiB held "
+          f"before | {smi}")
+    print(f"phase graphs: {name}: a call: B4 {eager_n['B4']} and B5 {eager_n['B5']} launches "
+          f"eager; graphed {outside['B4']} / {outside['B5']} by the wrappers + "
+          f"{in_graphs['B4']} / {in_graphs['B5']} replayed by the graphs (== kernel nodes x "
+          f"replays)")
+    for (key, kernels, nodes, other), n in zip(rows, replays):
+        what = f"{key[0]} at level {key[-1]}" if isinstance(key[0], str) else "evaluation key"
+        print(f"phase graphs: {name}:   graph {what} ({n} replays a call): {kernels} kernel "
+              f"nodes == the eager body's by name; B4 {nodes['B4']}, B5 {nodes['B5']} == the "
+              f"launches its capture recorded; {other} other nodes")
+    return {"median": med, "lat": lat, "first_s": first_s, "warm_s": warm_s,
+            "capture_s": capture_s, "entries": entries, "pool": pool, "pool_held": pool_held,
+            "static": static, "peak": peak, "eager_launches": eager_n, "outside": outside,
+            "in_graphs": in_graphs, "graphs": len(rows)}
+
+
+def graph_phase(dev, smi: str, sessions: dict, clock: PhaseClock) -> dict:
+    """Phase 29 (see the module's docstring) on the sessions of phases 8,
+    15, 16, 21 and 23; returns each item's numbers."""
+    from matrix_fhe_tpu_torch.rgsw import blindrot
+    from matrix_fhe_tpu_torch.rlwe import keys as K
+    from matrix_fhe_tpu_torch.schemes import ckks
+    out = {}
+    f = sessions["flagship"]
+    fev = ckks.Evaluator(f["params"], rlk=f["rlk"], galois_keys=f["gks"])
+    ct1, ct2 = f["ct1"], f["ct2"]
+    out["flagship"] = graph_item(
+        f"flagship step + {len(SESSION_ROTATIONS)} rotations (phase 23's session)",
+        lambda: (tuple(f["step"](*ct1.value, *ct2.value, f["rlk"])),
+                 [fev.rotate(ct1, k) for k in SESSION_ROTATIONS]), dev, smi)
+    b = sessions["blindrot"]
+    bev = blindrot.Evaluator(*b["params"])
+    out["blindrot"] = graph_item(
+        "a blind-rotated slot (phase 21's session)",
+        lambda: bev.evaluate(b["ct"], {0: b["test_poly"]}, b["keys"][2]), dev, smi,
+        repeats=GRAPH_SLOT_REPEATS, want={0: b["out"][0]}, want_from="phase 21")
+    m = sessions["matrix"]
+    mul = matrix_ops(m["params"], m["keys"][1], m["keys"][2])["mul_relin + rescale"]
+    out["matrix"] = graph_item(
+        "Matrix-CKKS mul_relin + rescale (phase 15's session)", lambda: mul(*m["cts"]), dev,
+        smi, want=m["outs"]["mul_relin + rescale"], want_from="phase 15")
+    c = sessions["ci"]
+    cp = c["params"]
+    cev = ckks.Evaluator(cp, rlk=c["keys"][1])
+    out["ci"] = graph_item(
+        "CI mul_relin + rescale (phase 16's session)",
+        lambda: cev.rescale(cev.mul_relin(*c["cts"])), dev, smi,
+        want=c["outs"]["mul_relin + rescale"], want_from="phase 16")
+    s8 = sessions["session"]
+    p8, sk8 = s8["params"], s8["sk"]
+    samples = {p8.galois_element(k): K.sample_evaluation_key(_gen(10 + k), p8)
+               for k in SESSION_ROTATIONS}
+    out["keygen"] = graph_item(
+        f"phase 8's {len(samples)} galois keys, deterministic part",
+        lambda: {g: K.galois_key_from_samples(p8, sk8, g, s) for g, s in samples.items()},
+        dev, smi, want=s8["gks"], want_from="phase 8")
+    del samples
+    clear_key_switch_graphs()
+    clock.done(29)
+    return out
 
 
 # -- 26. the multi-device code --------------------------------------------------------------
@@ -4388,7 +4680,7 @@ def main() -> int:
 
 
 def run(refs: CPUReferences) -> int:
-    """Phases 1-28 on the card; ``refs``: the CPU references."""
+    """Phases 1-29 on the card; ``refs``: the CPU references."""
     from matrix_fhe_tpu_torch.fast import fckks, fring
     from matrix_fhe_tpu_torch.ops import ntt_cuda, ntt_plain, ntt_w22
 
@@ -4764,6 +5056,7 @@ def run(refs: CPUReferences) -> int:
           f"{len(SESSION_ROTATIONS)} rotations and their decodings; FastEvaluator product "
           f"== fckks.mul_relin_rescale; CPU reference {sum(cpu_times.values()) / 1e3:.1f} s")
 
+    session8 = {"params": params, "sk": sk, "gks": gks}   # for phase 29
     clock.done(8)
 
     # -- 9. bootstrapping at logN = 14 ----------------------------------------------
@@ -4868,6 +5161,7 @@ def run(refs: CPUReferences) -> int:
     clock.done(27)
     fork = matrix_phases(dev, smi, rng, int32_ops_per_s, clock)
     to_hold.update(fork.pop("to_hold"))
+    ci29 = fork["ci_session"]   # for phase 29
     clock.done(16)
     rings = ring_phases(dev, smi, rng, int32_ops_per_s, clock, refs, b4.pop("wide_boot"),
                         fork.pop("ci_session"))
@@ -4876,6 +5170,10 @@ def run(refs: CPUReferences) -> int:
     rgsw_mp = rgsw_multiparty_phases(dev, smi, rng, int32_ops_per_s, clock, refs)
     clock.done(22)
     surface = surface_phases(dev, smi, rng, int32_ops_per_s, clock, refs)
+    gp = graph_phase(dev, smi, {"session": session8, "matrix": fork.pop("matrix_session"),
+                                "ci": ci29, "blindrot": rgsw_mp.pop("blindrot"),
+                                "flagship": surface.pop("flagship")}, clock)
+    del session8, ci29
     hold_to_cpu_references(to_hold, refs, clock)
     par = parallel_phase(dev, smi, rng, int32_ops_per_s, clock)
     n16 = n16_phase(dev, smi, rng, int32_ops_per_s, clock)
@@ -4918,8 +5216,16 @@ def run(refs: CPUReferences) -> int:
         for path in ("fast", "wide"):
             by_path[f"ntt64_{d}"][f"staged {path} bootstrap (phase 27, kernel nodes a "
                                   f"bootstrap)"] = staged27[path]["nodes"]["B4"][d]
+    for d in ("fwd", "bwd"):  # phase 29: kernel nodes in the key-switch graphs
+        for item, what in (("flagship", "flagship step + 8 rotations"),
+                           ("blindrot", "a blind-rotated slot"), ("keygen", "8 galois keys")):
+            by_path[f"ntt64_{d}"][f"{what} (phase 29, kernel nodes x replays in the key-switch "
+                                  f"graphs a call)"] = gp[item]["in_graphs"]["B4"][d]
     for d in ("fwd", "bwd"):
         by_path[f"ntt3n_{d}"] = {k: v[d] for k, v in fork["b5_by_path"].items()}
+        by_path[f"ntt3n_{d}"]["Matrix-CKKS mul_relin + rescale (phase 29, kernel nodes x "
+                              f"replays in the key-switch graphs a call)"] = \
+            gp["matrix"]["in_graphs"]["B5"][d]
         launches[f"ntt3n_{d}"] = fork["b5_launches"][d]
         stats[f"ntt3n_{d}"] = fork["b5_stats"][d]
         REPLACES[f"ntt3n_{d}"] = B5_REPLACES[d]
@@ -4928,6 +5234,8 @@ def run(refs: CPUReferences) -> int:
         by_path[f"ntt64_ci_{d}"]["bridge, the CI side (phase 18)"] = rings["ci_launches"][d]
         by_path[f"ntt64_ci_{d}"]["example ckks_scheme_switching, the CI side (phase 25)"] = \
             surface["ci_launches"][d]
+        by_path[f"ntt64_ci_{d}"]["CI mul_relin + rescale (phase 29, kernel nodes x replays in "
+                                 f"the key-switch graphs a call)"] = gp["ci"]["in_graphs"]["B4"][d]
         launches[f"ntt64_ci_{d}"] = fork["ci_launches"][d]
         stats[f"ntt64_ci_{d}"] = dict(fork["ci_stats"][d], max_abs_err=max(
             [fork["ci_stats"][d]["max_abs_err"]] + [r[2] for r in rings["ci_rows"] + surface["ci_rows"]
@@ -4951,7 +5259,7 @@ def run(refs: CPUReferences) -> int:
     assert par["b6"]["launches"] > 0 and par["b6"]["max_abs_err"] == 0, par["b6"]
     kernels.append(par["b6"])
     clock.done(28)
-    for n in range(1, 29):
+    for n in range(1, 30):
         print(f"phase time: {n} {clock.times.get(n, 0.0):.3f}")
     print(f"phase time: all {sum(clock.times.values()):.3f}")
     print(json.dumps({"kernels": kernels}))

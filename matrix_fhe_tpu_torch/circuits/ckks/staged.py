@@ -19,125 +19,59 @@ and the results are the same.
 
 from __future__ import annotations
 
-import time
 from fractions import Fraction
-
-import torch
 
 from matrix_fhe_tpu_torch.circuits.ckks import dft
 from matrix_fhe_tpu_torch.rlwe.elements import Ciphertext
-from matrix_fhe_tpu_torch.utils import device
+from matrix_fhe_tpu_torch.utils import graphs
 
 # The evaluator caches a stage fills on its first, eager run (fast/feval.py,
 # fast/weval.py); the u64 evaluator has none.
 _CACHES = ("_ctx_cache", "_evk_cache", "_flt_cache", "_wlt_cache")
 
 
-def _signature(cts) -> tuple:
-    """What a graph is captured for: each input's full metadata, degree and
-    the shape, dtype and device of each limb tensor."""
-    return tuple((c.metadata, c.degree, tuple((v.shape, v.dtype, v.device) for v in c.value))
-                 for c in cts)
-
-
-class _Entry:
-    """One captured graph: its static input and output buffers, the output
-    metadata recorded at capture, the device constants it reads, and the
-    first call's times."""
-
-    def __init__(self, graph, inputs, outputs, metas, constants, seconds):
-        self.graph = graph
-        self.inputs = inputs      # one tuple of limb tensors an input
-        self.outputs = outputs    # one tuple of limb tensors an output (None: no output)
-        self.metas = metas
-        # every utils/device.py constant read while capturing: the graph holds
-        # their addresses, not references, and the shared cache may drop them
-        self.constants = constants
-        self.seconds = seconds    # {"warm-up": s, "capture": s}
-
-
 class GraphedCiphertextFn:
     """A function of ciphertexts, captured into one CUDA graph for each input
     signature and replayed; see ``graph_ciphertext_fn``."""
 
-    def __init__(self, ev, params, fn, n_out: int, pool, name: str, streams: dict):
-        self.ev, self.fn, self.n_out, self.pool, self.name = ev, fn, n_out, pool, name
-        self.streams = streams
-        self.on_cuda = params.device.type == "cuda"
-        self.entries: dict[tuple, _Entry] = {}
+    def __init__(self, ev, params, fn, n_out: int, memory: graphs.GraphMemory, name: str):
+        self.ev, self.fn, self.n_out, self.name = ev, fn, n_out, name
+        self.device = params.device
+        self._graphed = graphs.GraphedFn(f"stage {name!r}", memory)
+
+    @property
+    def entries(self) -> dict:
+        """signature -> ``graphs.Graph``, one a signature captured (none on the CPU)."""
+        return self._graphed.entries
+
+    @property
+    def pool(self):
+        """The memory pool the graphs are captured into."""
+        return self._graphed.memory.pool(self.device)
 
     def __call__(self, *cts):
-        if not self.on_cuda:
-            return self.fn(*cts)
-        key = _signature(cts)
-        entry = self.entries.get(key)
-        if entry is None:
-            entry = self.entries[key] = self._capture(cts)
-        else:
-            for buf, c in zip(entry.inputs, cts):
-                for dst, src in zip(buf, c.value):
-                    dst.copy_(src)
-        entry.graph.replay()
-        outs = tuple(None if m is None else Ciphertext(value=tuple(v.clone() for v in vals),
-                                                       metadata=m)
-                     for m, vals in zip(entry.metas, entry.outputs))
+        # a ciphertext's metadata is part of the signature; the outputs' is
+        # recorded at capture
+        outs = self._graphed.call(self._flat, *((c.metadata, tuple(c.value)) for c in cts),
+                                  caches=self._cache_sizes)
+        outs = tuple(None if o is None else Ciphertext(value=o[1], metadata=o[0]) for o in outs)
         return outs[0] if self.n_out == 1 else outs
 
-    def _run(self, cts):
-        outs = self.fn(*cts)
-        return (outs,) if self.n_out == 1 else tuple(outs)
+    def _flat(self, *cts):
+        outs = self.fn(*(Ciphertext(value=v, metadata=m) for m, v in cts))
+        outs = (outs,) if self.n_out == 1 else tuple(outs)
+        return tuple(None if o is None else (o.metadata, tuple(o.value)) for o in outs)
 
     def _cache_sizes(self) -> tuple:
         return tuple(len(getattr(self.ev, n)) for n in _CACHES if hasattr(self.ev, n))
 
-    def _capture(self, cts) -> _Entry:
-        """The first call of a signature: fn once eagerly on a side stream
-        (it fills the evaluator's caches and makes every device constant the
-        stage needs, kept for the graph), then fn captured on static copies
-        of the inputs."""
-        dev = cts[0].value[0].device
-        inputs = tuple(tuple(v.clone(memory_format=torch.contiguous_format) for v in c.value)
-                       for c in cts)
-        static = [c.with_value(buf) for c, buf in zip(cts, inputs)]
-        t0 = time.perf_counter()
-        if dev not in self.streams:
-            self.streams[dev] = (torch.cuda.Stream(dev), torch.cuda.Stream(dev))
-        side, capture = self.streams[dev]
-        side.wait_stream(torch.cuda.current_stream(dev))
-        held: dict = {}
-        with torch.cuda.stream(side), device.holding(held):
-            self._run(static)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        torch.cuda.synchronize(dev)
-        t1 = time.perf_counter()
-        sizes = self._cache_sizes()
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
-        try:
-            # the outer context puts the current stream back even when a
-            # failed capture leaves torch.cuda.graph's own unrestored
-            with device.holding(held), torch.cuda.stream(capture), \
-                    torch.cuda.graph(graph, pool=self.pool, stream=capture):
-                outs = self._run(static)
-        except RuntimeError as e:
-            raise RuntimeError(f"stage {self.name!r} could not be captured into a CUDA "
-                               f"graph: {e}") from e
-        if self._cache_sizes() != sizes:
-            # an entry made during the capture would hold memory that the
-            # graph's next replay writes over
-            raise RuntimeError(f"stage {self.name!r} added to the evaluator's caches during "
-                               f"its capture, after an eager run of the same inputs")
-        graph.instantiate()
-        torch.cuda.synchronize(dev)
-        seconds = {"warm-up": t1 - t0, "capture": time.perf_counter() - t1}
-        return _Entry(graph, inputs, tuple(None if o is None else o.value for o in outs),
-                      tuple(None if o is None else o.metadata for o in outs), held, seconds)
 
-
-def graph_ciphertext_fn(ev, params, fn, n_out: int = 1, pool=None, name: str = "stage",
-                        streams: dict | None = None) -> GraphedCiphertextFn:
+def graph_ciphertext_fn(ev, params, fn, n_out: int = 1, name: str = "stage",
+                        memory: graphs.GraphMemory | None = None) -> GraphedCiphertextFn:
     """``fn`` (Ciphertexts in, ``n_out`` Ciphertexts or None out) as one CUDA
-    graph for each input signature (``_signature``), the counterpart of the
-    JAX package's ``jit_ciphertext_fn``.
+    graph for each input signature (each input's metadata, degree and the
+    shape, dtype and device of each limb tensor), the counterpart of the
+    JAX package's ``jit_ciphertext_fn``, on ``utils/graphs.py``.
 
     When ``params`` live on a CUDA device, the first call of a signature runs
     fn once eagerly on a side stream, which fills ``ev``'s caches and the
@@ -146,17 +80,13 @@ def graph_ciphertext_fn(ev, params, fn, n_out: int = 1, pool=None, name: str = "
     fn on static copies of the inputs and records the outputs' metadata;
     every call copies its inputs into the static buffers, replays, and
     returns clones of the static outputs, so a result is never overwritten
-    by the next replay.  Graphs given the same ``pool``
-    (``torch.cuda.graph_pool_handle()``) share their memory, and graphs
-    given the same ``streams`` dict warm up on one side stream and capture
-    on one stream a device: the caching allocator reuses a freed block only
-    on the stream that allocated it, so a capture reuses the blocks the
-    captures before it freed in the pool, and a warm-up those the warm-ups
-    before it freed.  A stage that cannot be captured (a host
-    synchronisation, a copy from host memory) raises with its ``name``; it
-    never runs eagerly instead.  On the CPU fn runs eagerly."""
-    return GraphedCiphertextFn(ev, params, fn, n_out, pool, name,
-                               {} if streams is None else streams)
+    by the next replay.  Graphs given the same ``memory``
+    (``graphs.GraphMemory``; by default one of their own) share one memory
+    pool and one pair of streams a device.  A stage that cannot be captured
+    (a host synchronisation, a copy from host memory) raises with its
+    ``name``; it never runs eagerly instead.  On the CPU fn runs eagerly."""
+    return GraphedCiphertextFn(ev, params, fn, n_out,
+                               graphs.GraphMemory() if memory is None else memory, name)
 
 
 def _level_groups(matrix: dft.Matrix) -> list[list]:
@@ -187,12 +117,10 @@ class StagedBootstrapper:
                         and lit.log_slots < params.log_n - 1)
         # one memory pool and one pair of streams for every graph of this
         # bootstrapper
-        pool = torch.cuda.graph_pool_handle() if params.device.type == "cuda" else None
-        streams: dict = {}
+        memory = graphs.GraphMemory()
 
         def graph(name, fn, n_out=1):
-            return graph_ciphertext_fn(ev, params, fn, n_out, pool=pool, name=name,
-                                       streams=streams)
+            return graph_ciphertext_fn(ev, params, fn, n_out, name=name, memory=memory)
 
         def head(ct):
             ct = bts.scale_down(ct)

@@ -32,6 +32,7 @@ import functools
 import torch
 
 from matrix_fhe_tpu_torch.ops import ntt_3n, ntt_cuda
+from matrix_fhe_tpu_torch.utils import graphs
 
 SOURCE = ntt_cuda._PKG / "csrc" / "ntt3n.cu"
 BUILD_KEY = 0  # the library's size key in ntt_cuda.library_path: one for all N
@@ -39,7 +40,8 @@ BUILD_KEY = 0  # the library's size key in ntt_cuda.library_path: one for all N
 MAX_SMEM_BYTES = 227 * 1024
 CLUSTERS = (1, 2, 4, 8)
 
-# Kernel launches since the counts were last reset, by direction.
+# Kernel launches since the counts were last reset, by direction (a capture
+# launches nothing; a graph's replays count in utils/graphs.py replays()).
 fwd_launches = 0
 bwd_launches = 0
 
@@ -114,7 +116,7 @@ def ntt_fwd(x: torch.Tensor, ring) -> torch.Tensor:
     if not x.is_cuda:
         return ntt_fwd_plain(x, ring)
     out = launch(x, ring, fwd=True)
-    fwd_launches += 1
+    fwd_launches += graphs.launched(f"{__name__}.ntt_fwd", x, ring)
     return out
 
 
@@ -124,7 +126,7 @@ def ntt_bwd(x: torch.Tensor, ring) -> torch.Tensor:
     if not x.is_cuda:
         return ntt_bwd_plain(x, ring)
     out = launch(x, ring, fwd=False)
-    bwd_launches += 1
+    bwd_launches += graphs.launched(f"{__name__}.ntt_bwd", x, ring)
     return out
 
 

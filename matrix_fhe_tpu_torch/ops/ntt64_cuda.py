@@ -41,6 +41,7 @@ import functools
 import torch
 
 from matrix_fhe_tpu_torch.ops import ntt_cuda
+from matrix_fhe_tpu_torch.utils import graphs
 
 SOURCE = ntt_cuda._PKG / "csrc" / "ntt64.cu"
 MIN_N = 1 << 4
@@ -54,7 +55,8 @@ MIN_CLUSTER_N = 1 << 10
 LOGNS = range(MIN_N.bit_length() - 1, MAX_N.bit_length())
 
 # Kernel launches since the counts were last reset, by direction, for the
-# standard ring and for the CI ring.
+# standard ring and for the CI ring (a capture launches nothing; a graph's
+# replays count in utils/graphs.py replays()).
 fwd_launches = 0
 bwd_launches = 0
 ci_fwd_launches = 0
@@ -79,7 +81,7 @@ def ntt_fwd(x: torch.Tensor, ring) -> torch.Tensor:
     if not x.is_cuda:
         return ntt_fwd_plain(x, ring)
     out = launch(x, ring, fwd=True)
-    fwd_launches += 1
+    fwd_launches += graphs.launched(f"{__name__}.ntt_fwd", x, ring)
     return out
 
 
@@ -89,7 +91,7 @@ def ntt_bwd(x: torch.Tensor, ring) -> torch.Tensor:
     if not x.is_cuda:
         return ntt_bwd_plain(x, ring)
     out = launch(x, ring, fwd=False)
-    bwd_launches += 1
+    bwd_launches += graphs.launched(f"{__name__}.ntt_bwd", x, ring)
     return out
 
 
@@ -113,7 +115,7 @@ def ntt_ci_fwd(x: torch.Tensor, ring) -> torch.Tensor:
     if not x.is_cuda:
         return ntt_ci_fwd_plain(x, ring)
     out = launch(x, ring, fwd=True, ci=True)
-    ci_fwd_launches += 1
+    ci_fwd_launches += graphs.launched(f"{__name__}.ntt_ci_fwd", x, ring)
     return out
 
 
@@ -125,7 +127,7 @@ def ntt_ci_bwd(x: torch.Tensor, ring) -> torch.Tensor:
     if not x.is_cuda:
         return ntt_ci_bwd_plain(x, ring)
     out = launch(x, ring, fwd=False, ci=True)
-    ci_bwd_launches += 1
+    ci_bwd_launches += graphs.launched(f"{__name__}.ntt_ci_bwd", x, ring)
     return out
 
 

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from matrix_fhe_tpu_torch.ops import ntt_plain, tables
+from matrix_fhe_tpu_torch.utils import graphs
 from matrix_fhe_tpu_torch.utils import primes as pr
 from matrix_fhe_tpu_torch.utils.device import resolve_device
 
@@ -58,7 +59,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # Kernel launches since the counts were last reset: by ntt_fwd, by ntt_bwd,
-# by ntt_chain in each direction, and by all four together.
+# by ntt_chain in each direction, and by all four together (a capture
+# launches nothing; a graph's replays count in utils/graphs.py replays()).
 fwd_launches = 0
 bwd_launches = 0
 chain_fwd_launches = 0
@@ -255,7 +257,7 @@ def ntt_fwd(x: torch.Tensor, tabs: NTTTables) -> torch.Tensor:
     if not x.is_cuda:
         return ntt_plain.ntt_fwd_plain(x, tabs)
     out = launch(x, tabs, fwd=True)
-    fwd_launches += 1
+    fwd_launches += graphs.launched(f"{__name__}.ntt_fwd", x, tabs)
     return out
 
 
@@ -265,7 +267,7 @@ def ntt_bwd(x: torch.Tensor, tabs: NTTTables) -> torch.Tensor:
     if not x.is_cuda:
         return ntt_plain.ntt_bwd_plain(x, tabs)
     out = launch(x, tabs, fwd=False)
-    bwd_launches += 1
+    bwd_launches += graphs.launched(f"{__name__}.ntt_bwd", x, tabs)
     return out
 
 
@@ -283,9 +285,9 @@ def ntt_chain(x: torch.Tensor, tabs: NTTTables, k: int,
         return ntt_plain.ntt_chain_plain(x, tabs, k, fwd)
     out = launch(x, tabs, fwd, k)
     if fwd:
-        chain_fwd_launches += 1
+        chain_fwd_launches += graphs.launched(f"{__name__}.ntt_chain_fwd", x, tabs)
     else:
-        chain_bwd_launches += 1
+        chain_bwd_launches += graphs.launched(f"{__name__}.ntt_chain_bwd", x, tabs)
     return out
 
 
@@ -378,5 +380,6 @@ def launch(x: torch.Tensor, tabs: NTTTables, fwd: bool, k: int = 1,
     err = entry(x.data_ptr(), out.data_ptr(), *ptrs, rows, L, logn, k, cluster, dev, stream)
     if err:
         raise RuntimeError(f"NTT kernel launch failed: CUDA error {err}")
-    launches += 1
+    if not torch.cuda.is_current_stream_capturing():   # a capture launches nothing
+        launches += 1
     return out

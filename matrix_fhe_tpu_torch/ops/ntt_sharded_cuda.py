@@ -32,6 +32,7 @@ import torch
 
 from matrix_fhe_tpu_torch.ops import modmath as mm
 from matrix_fhe_tpu_torch.ops import ntt_cuda, tables
+from matrix_fhe_tpu_torch.utils import graphs
 from matrix_fhe_tpu_torch.utils.device import resolve_device
 
 SOURCE = ntt_cuda._PKG / "csrc" / "ntt_sharded.cu"
@@ -44,7 +45,7 @@ THREADS = (128, 256)
 CHUNK = 64
 STAGE_WORDS = 2048
 
-# Kernel launches since the count was last reset.
+# Kernel launches since the count was last reset (a capture launches nothing).
 launches = 0
 
 
@@ -130,7 +131,7 @@ def local_step(x: torch.Tensor, tabs, col0: int) -> torch.Tensor:
     if not x.is_cuda:
         return local_step_plain(x, tabs, col0)
     out = launch(x.contiguous(), tabs, col0)
-    launches += 1
+    launches += graphs.launched(f"{__name__}.local_step", x, tabs)
     return out
 
 

@@ -21,11 +21,14 @@ from __future__ import annotations
 import torch
 
 from matrix_fhe_tpu_torch.ops import ntt_cuda, ntt_plain
+from matrix_fhe_tpu_torch.utils import graphs
 from matrix_fhe_tpu_torch.utils import primes as pr
 
 MAX_W22_MODULUS = 1 << 22
 
-# Kernel launches since the counts were last reset, by ntt_fwd and ntt_bwd.
+# Kernel launches since the counts were last reset, by ntt_fwd and ntt_bwd
+# (a capture launches nothing; a graph's replays count in utils/graphs.py
+# replays()).
 w22_fwd_launches = 0
 w22_bwd_launches = 0
 
@@ -63,7 +66,7 @@ def ntt_fwd(x: torch.Tensor, tabs: W22Tables) -> torch.Tensor:
     if x.device.type == "cpu":
         return ntt_plain.ntt_fwd_plain(x, tabs)
     out = ntt_cuda.launch(x, tabs, fwd=True)
-    w22_fwd_launches += 1
+    w22_fwd_launches += graphs.launched(f"{__name__}.ntt_fwd", x, tabs)
     return out
 
 
@@ -73,7 +76,7 @@ def ntt_bwd(x: torch.Tensor, tabs: W22Tables) -> torch.Tensor:
     if x.device.type == "cpu":
         return ntt_plain.ntt_bwd_plain(x, tabs)
     out = ntt_cuda.launch(x, tabs, fwd=False)
-    w22_bwd_launches += 1
+    w22_bwd_launches += graphs.launched(f"{__name__}.ntt_bwd", x, tabs)
     return out
 
 

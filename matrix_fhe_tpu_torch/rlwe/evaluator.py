@@ -6,10 +6,18 @@ Counterpart of ``matrix_fhe_tpu/rlwe/evaluator.py`` (the reference's
 core/rlwe/evaluator*.go).  Every step is fully reduced, which is
 bit-identical to the reference's lazy windows at op boundaries
 (evaluator_gadget_product.go:148-177).  The JAX package's per-level jit
-caches have no counterpart: torch runs eagerly.
+cache is ``_pgraph``: on the card the key switch runs as CUDA graphs, one
+for each (name, parameters, level) and input signature, at the JAX
+package's four sites (the digit loop of ``decompose_ntt``,
+``gadget_product_hoisted`` and both flavours of ``gadget_product``).  Their
+bodies stay callable (``decompose_digits``, ``gadget_product_hoisted_body``,
+``gadget_product_body``), and within ``utils/graphs.py:eager()`` every call
+runs eagerly: the plain form the graphs are held to.
 """
 
 from __future__ import annotations
+
+import collections
 
 import torch
 
@@ -20,8 +28,43 @@ from matrix_fhe_tpu_torch.rlwe.elements import Ciphertext
 from matrix_fhe_tpu_torch.rlwe.keys import (GadgetCiphertext, GaloisKey,
                                             RelinearizationKey, base_two_counts)
 from matrix_fhe_tpu_torch.rlwe.params import Parameters
+from matrix_fhe_tpu_torch.utils import graphs
 
 Digits = list[tuple[torch.Tensor, torch.Tensor | None]]
+
+# Per-(params, level) key-switch graphs, the counterpart of the JAX package's
+# jit cache (matrix_fhe_tpu/rlwe/evaluator.py:142-164): relinearization,
+# rotations and key application all funnel through gadget_product at
+# recurring shapes, so one CUDA graph a (name, parameters, level) and input
+# signature replaces thousands of small launches from the host.  A bounded
+# LRU keyed as the JAX package's; an evicted entry frees its graphs.  Every
+# graph captures into graphs.SHARED, one pool and one stream pair a device,
+# whose static inputs the graphs share by shape: the whole gadget is an
+# input, as in the JAX package, so the graphs of every level read one copy.
+_GRAPH_CACHE: collections.OrderedDict = collections.OrderedDict()
+_GRAPH_CACHE_MAX = 1024
+
+
+def _table_counts(params: Parameters) -> tuple:
+    """The sizes of the key-switching tables' caches, which a capture must not grow."""
+    return len(params._decomposers), len(params._moddown)
+
+
+def _pgraph(name: str, params: Parameters, level: int, fn):
+    """``fn``, a function of tensors, run through the graph cache: the JAX
+    package's ``_pjit``, with the same key."""
+    ck = (name, params.n, tuple(params.q), tuple(params.p or ()), params.ring_type, level)
+    return graphs.cached(_GRAPH_CACHE, _GRAPH_CACHE_MAX, ck, f"key switch {name!r} at level "
+                         f"{level}", fn, params.device, caches=lambda: _table_counts(params))
+
+
+def _gadget_args(gadget: GadgetCiphertext) -> tuple:
+    return gadget.q, gadget.p, gadget.base_two
+
+
+def _gadget(args: tuple) -> GadgetCiphertext:
+    q, p, base_two = args
+    return GadgetCiphertext(q=q, p=p, base_two=base_two)
 
 
 def decompose_ntt(params: Parameters, level: int, cx: torch.Tensor,
@@ -33,6 +76,15 @@ def decompose_ntt(params: Parameters, level: int, cx: torch.Tensor,
         cx_ntt, cx_inv = cx, rq.intt(cx)
     else:
         cx_ntt, cx_inv = rq.ntt(cx), cx
+    fn = _pgraph("decompose_ntt", params, level,
+                 lambda a, b: decompose_digits(params, level, a, b))
+    return fn(cx_ntt, cx_inv)
+
+
+def decompose_digits(params: Parameters, level: int, cx_ntt: torch.Tensor,
+                     cx_inv: torch.Tensor) -> Digits:
+    """``decompose_ntt``'s digit loop, the part its graph holds."""
+    rq = params.ring_q.at_level(level)
     dec = params.decomposer(level)
     return [rt.decompose_single_ntt(dec, i, cx_ntt, cx_inv, rq, params.ring_p)
             for i in range(params.base_rns_decomposition_vector_size(level))]
@@ -107,6 +159,14 @@ def gadget_product_hoisted(params: Parameters, level: int, digits: Digits,
                            gadget: GadgetCiphertext) -> tuple[torch.Tensor, torch.Tensor]:
     """<decomp(cx), gadget> over Q after ModDown by P (NTT domain, at
     ``level``; evaluator_gadget_product.go:16-60)."""
+    fn = _pgraph("gadget_product_hoisted", params, level,
+                 lambda d, g: gadget_product_hoisted_body(params, level, d, _gadget(g)))
+    return fn(digits, _gadget_args(gadget))
+
+
+def gadget_product_hoisted_body(params: Parameters, level: int, digits: Digits,
+                                gadget: GadgetCiphertext) -> tuple[torch.Tensor, torch.Tensor]:
+    """``gadget_product_hoisted``'s body, the part its graph holds."""
     acc = gadget_product_hoisted_lazy(params, level, digits, gadget)
     return mod_down_qp(params, level, acc[0], acc[2]), mod_down_qp(params, level, acc[1], acc[3])
 
@@ -114,12 +174,25 @@ def gadget_product_hoisted(params: Parameters, level: int, digits: Digits,
 def gadget_product(params: Parameters, level: int, cx: torch.Tensor,
                    gadget: GadgetCiphertext) -> tuple[torch.Tensor, torch.Tensor]:
     """GadgetProduct (evaluator_gadget_product.go:16-30) of an NTT-domain cx,
-    for either gadget flavour: RNS digits, or single-P base 2^B (:190-325)."""
+    for either gadget flavour: RNS digits, or single-P base 2^B (:190-325),
+    each one graph a level (the flavour's base and P level in its name)."""
+    name = (f"gadget_product_b2_{gadget.base_two}_{gadget.level_p}" if gadget.base_two > 0
+            else "gadget_product")
+    fn = _pgraph(name, params, level,
+                 lambda c, g: gadget_product_body(params, level, c, _gadget(g)))
+    return fn(cx, _gadget_args(gadget))
+
+
+def gadget_product_body(params: Parameters, level: int, cx: torch.Tensor,
+                        gadget: GadgetCiphertext) -> tuple[torch.Tensor, torch.Tensor]:
+    """``gadget_product``'s body, the part its graph holds: the
+    decomposition and the hoisted product (in the RNS flavour through their
+    own cache entries, inlined as the JAX package's nested jits are; call it
+    within ``graphs.eager()`` to run it eagerly)."""
     if gadget.base_two > 0:
         digits = decompose_ntt_base2(params, level, cx, gadget.base_two, gadget.level_p)
-    else:
-        digits = decompose_ntt(params, level, cx)
-    return gadget_product_hoisted(params, level, digits, gadget)
+        return gadget_product_hoisted_body(params, level, digits, gadget)
+    return gadget_product_hoisted(params, level, decompose_ntt(params, level, cx), gadget)
 
 
 def apply_evaluation_key(params: Parameters, ct: Ciphertext, evk) -> Ciphertext:

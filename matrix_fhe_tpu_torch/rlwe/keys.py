@@ -23,10 +23,16 @@ are not (``ops/samplers.py``).
 
 Keys are stored as in the JAX package (NTT + Montgomery form); a gadget
 ciphertext is dense, q-part [rows, 2, LQ, N] and p-part [rows, 2, LP, N].
+
+The deterministic part of an evaluation key on the default gadget runs
+through ``_EVK_GRAPH_CACHE``, the counterpart of the JAX package's
+``_EVK_JIT_CACHE``: on the card one CUDA graph a parameter set and input
+signature (``utils/graphs.py``).
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 
 import torch
@@ -35,6 +41,7 @@ from matrix_fhe_tpu_torch.ops import automorphism as am
 from matrix_fhe_tpu_torch.ops import modmath as mm
 from matrix_fhe_tpu_torch.ops import samplers as smp
 from matrix_fhe_tpu_torch.rlwe.params import Parameters
+from matrix_fhe_tpu_torch.utils import graphs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -226,20 +233,50 @@ def sample_evaluation_key(gen: torch.Generator, params: Parameters,
     return [sample_zero_qp(gen, kp) for _ in range(_num_rows(kp, b2))]
 
 
+# One graph a parameter set: every relinearization, Galois and evaluation key
+# of a parameter set has the same shapes, so the key's deterministic part is
+# one replay.  Keyed as the JAX package's _EVK_JIT_CACHE
+# (matrix_fhe_tpu/rlwe/keys.py:232-241), the distributions included; a
+# bounded LRU whose evicted entries free their graphs.
+_EVK_GRAPH_CACHE: collections.OrderedDict = collections.OrderedDict()
+_EVK_GRAPH_CACHE_MAX = 32
+
+
 def evaluation_key_from_samples(params: Parameters, sk_in_q: torch.Tensor,
                                 sk_out: SecretKey, samples: list[ZeroSample],
                                 evk_params: EvaluationKeyParameters | None = None
                                 ) -> EvaluationKey:
     """genEvaluationKey: gadget rows are zero encryptions under sk_out plus
     P * skIn * the row's selector.  sk_in_q: [LQ, N] the input key mod Q,
-    NTT + Montgomery form."""
+    NTT + Montgomery form.  The default gadget runs through the graph cache;
+    the base-two gadget and another P level run eagerly, as the JAX
+    package's early return does (matrix_fhe_tpu/rlwe/keys.py:283-304)."""
     kp, b2 = _key_basis(params, evk_params)
     if len(samples) != _num_rows(kp, b2):
         raise ValueError(f"{len(samples)} samples for {_num_rows(kp, b2)} gadget rows")
-    if kp is not params:
-        lp = kp.max_level_p
-        sk_out = SecretKey(value=QPPoly(
-            q=sk_out.value.q, p=None if lp < 0 else sk_out.value.p[: lp + 1]))
+    if kp is not params or b2 > 0:
+        if kp is not params:
+            lp = kp.max_level_p
+            sk_out = SecretKey(value=QPPoly(
+                q=sk_out.value.q, p=None if lp < 0 else sk_out.value.p[: lp + 1]))
+        gq, gp = gadget_rows(kp, sk_in_q, sk_out, samples, b2)
+        return EvaluationKey(gadget=GadgetCiphertext(q=gq, p=gp, base_two=b2))
+    ck = (params.n, tuple(params.q), tuple(params.p or ()), params.ring_type, params.xe,
+          params.xs)
+    fn = graphs.cached(_EVK_GRAPH_CACHE, _EVK_GRAPH_CACHE_MAX, ck, "evaluation key",
+                       lambda s_in, so_q, so_p, zs: gadget_rows(
+                           params, s_in, SecretKey(value=QPPoly(q=so_q, p=so_p)),
+                           [ZeroSample(a_q=a_q, a_p=a_p, e=e) for a_q, a_p, e in zs], 0),
+                       params.device)
+    gq, gp = fn(sk_in_q, sk_out.value.q, sk_out.value.p,
+                [(s.a_q, s.a_p, s.e) for s in samples])
+    return EvaluationKey(gadget=GadgetCiphertext(q=gq, p=gp))
+
+
+def gadget_rows(kp: Parameters, sk_in_q: torch.Tensor, sk_out: SecretKey,
+                samples: list[ZeroSample], b2: int) -> tuple:
+    """The gadget's (q, p) arrays over the key's basis ``kp`` (p None
+    without auxiliary primes): the body of the evaluation key's graph."""
     rq = kp.ring_q
     big_p = kp.big_p()
     LQ = len(kp.q)
@@ -268,7 +305,7 @@ def evaluation_key_from_samples(params: Parameters, sk_in_q: torch.Tensor,
     gp = None
     if kp.ring_p is not None:
         gp = torch.stack([torch.stack([c0.p, c1.p]) for c0, c1 in zeros])
-    return EvaluationKey(gadget=GadgetCiphertext(q=gq, p=gp, base_two=b2))
+    return gq, gp
 
 
 def gen_evaluation_key(gen: torch.Generator, params: Parameters, sk_in_q: torch.Tensor,
